@@ -1,0 +1,103 @@
+"""Carry parameters and policy state from the JAX package into the port.
+
+The input is the reference's pytree as numpy arrays (for a JAX pytree:
+``jax.tree.map(np.asarray, params)``, done by the caller, so this module
+imports no JAX).  Nesting is kept: dicts stay dicts, tuples stay tuples
+(``prefix``, ``scan``), and ``scan`` leaves stay stacked ``(n_super,
+...)``.  The same function carries a reference policy state (its random
+initial resident set comes from ``jax.random``, which torch cannot
+reproduce).
+
+``save_npz`` / ``load_npz`` store such a tree in one ``.npz`` file (keys
+are ``/``-joined paths, tuple positions written ``#i``), which is how
+``python -m repro_torch.launch.serve --weights`` serves weights made by
+the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+_BF16 = "::bfloat16"
+
+
+def _leaf_to_torch(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes' bfloat16
+        u = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(u.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def to_torch(tree, device="cuda"):
+    """numpy pytree (dict / tuple / list of arrays) -> the same nesting of
+    tensors on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_to_torch(a, dev), tree)
+
+
+def flatten(tree, prefix: str = ""):
+    """numpy pytree -> {path: array} (tuple positions written ``#i``)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (tuple, list)):
+        if not tree:                          # keeps an empty ``prefix``
+            out[f"{prefix}#"] = np.zeros(0, np.int8)
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}#{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten(flat):
+    """Inverse of :func:`flatten`."""
+    root: dict = {}
+    for path, arr in flat.items():
+        node = root
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if set(node) == {"#"}:
+            return ()
+        if node and all(k.startswith("#") for k in node):
+            return tuple(fix(node[f"#{i}"]) for i in range(len(node)))
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+def save_npz(path, tree):
+    """Write a numpy pytree to one ``.npz`` (bfloat16 stored as its bits)."""
+    arrays = {}
+    for k, a in flatten(tree).items():
+        if a.dtype.name == "bfloat16":
+            arrays[k + _BF16] = np.ascontiguousarray(a).view(np.uint16)
+        else:
+            arrays[k] = a
+    np.savez(path, **arrays)
+
+
+def load_npz(path, device="cuda"):
+    """Read a tree written by :func:`save_npz` as tensors on ``device``."""
+    dev = resolve_device(device)
+    flat = {}
+    with np.load(path) as z:
+        for k in z.files:
+            a = z[k]
+            if k.endswith(_BF16):
+                flat[k[:-len(_BF16)]] = torch.from_numpy(
+                    a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+            else:
+                flat[k] = torch.from_numpy(a).to(dev)
+    return unflatten(flat)

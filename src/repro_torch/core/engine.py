@@ -1,0 +1,99 @@
+"""DALI engine helpers around the policy step (port of the serving half of
+``repro/core/engine.py``): live-slot workload recounting and the host-side
+telemetry aggregator.
+
+The aggregator is sync-free per step, as in the reference: ``observe``
+keeps a handle to the policy state's device accumulator and the host reads
+it once per ``flush_interval`` steps.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+
+def masked_workloads(topk_idx, n_experts: int, token_mask):
+    """Per-expert token counts from per-token routing choices, restricted
+    to live slots.  topk_idx (L, T, K), token_mask (T,) bool -> (L, E)
+    int32: the scheduler sees the actual per-step token mix under
+    continuous batching instead of counting tokens of empty slots."""
+    L, T, K = topk_idx.shape
+    live = token_mask.to(torch.int32)[None, :, None].expand(L, T, K)
+    counts = torch.zeros((L, n_experts), dtype=torch.int32,
+                         device=topk_idx.device)
+    return counts.scatter_add_(1, topk_idx.reshape(L, -1).long(),
+                               live.reshape(L, -1))
+
+
+@dataclass
+class TelemetryAggregator:
+    """Host-side view of policy telemetry across a serve run whose batch
+    composition changes every step.
+
+    ``observe`` once per decode step records the host-known counters
+    (steps, live tokens) and keeps a handle to the device accumulator
+    (``policy_state["acc"]``): no device-to-host copy.  Every
+    ``flush_interval`` observed steps (and at ``flush``/``end_epoch``) the
+    accumulator is read with one copy and the deltas land in the totals."""
+    flush_interval: int = 16
+    steps: int = 0
+    moe_time_est: float = 0.0
+    link_time_est: float = 0.0
+    hits: int = 0
+    misses: int = 0
+    swaps: int = 0
+    active_tokens: int = 0
+    _pending: object = field(default=None, repr=False)
+    _prev: dict = field(default_factory=dict, repr=False)
+    _since_flush: int = field(default=0, repr=False)
+
+    def observe(self, policy_state, n_active=None):
+        """Per decode step, sync-free.  No-op when scheduling is off."""
+        acc = policy_state.get("acc") if policy_state else None
+        if acc is None:
+            return
+        self.steps += 1
+        if n_active is not None:
+            self.active_tokens += int(n_active)
+        self._pending = acc
+        self._since_flush += 1
+        if self._since_flush >= self.flush_interval:
+            self.flush()
+
+    def flush(self):
+        """Drain the last observed device accumulator (one host sync)."""
+        if self._pending is None:
+            return
+        acc = {k: v.cpu() for k, v in self._pending.items()}
+        for attr, key, cast in (("moe_time_est", "moe_time", float),
+                                ("link_time_est", "link_time", float),
+                                ("hits", "hits", int),
+                                ("misses", "misses", int),
+                                ("swaps", "swaps", int)):
+            cur = float(acc[key])
+            setattr(self, attr,
+                    getattr(self, attr) + cast(cur - self._prev.get(key, 0)))
+            self._prev[key] = cur
+        self._pending = None
+        self._since_flush = 0
+
+    def end_epoch(self):
+        """Flush and re-base: the next observed policy state starts its
+        accumulator from zero."""
+        self.flush()
+        self._prev = {}
+
+    @property
+    def lookups(self) -> int:
+        return self.hits + self.misses
+
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def summary(self) -> str:
+        if not self.steps:
+            return ""
+        return (f"DALI est: moe={self.moe_time_est:.3f}s "
+                f"link={self.link_time_est:.3f}s "
+                f"hit%={100 * self.hit_rate():.1f}")

@@ -1,0 +1,101 @@
+"""Grouped gated expert FFN (K2): dense, ragged (``counts``) and grouped
+(``counts`` + ``expert_ids``) in one CUDA kernel, ``csrc/expert_ffn.cu``.
+
+``expert_ffn`` launches it for CUDA tensors and runs ``expert_ffn_plain``
+for CPU tensors.  xe (G, C, d); w_gate / w_up (E, d, f); w_down (E, f, d)
+-> (G, C, d) in xe's dtype.  Without ``expert_ids``, G == E and group g
+uses weight set g.  Rows at or beyond ``counts[g]`` are zero in the output
+whatever the bucket tail holds.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import kernels
+from repro_torch.kernels.build import check, library
+
+ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu}
+ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
+
+
+def _variant(counts, expert_ids) -> str:
+    if expert_ids is not None:
+        return "grouped"
+    return "dense" if counts is None else "ragged"
+
+
+def expert_ffn_plain(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
+                     act: str = "silu"):
+    """Plain PyTorch version: float32 arithmetic, output in xe's dtype.
+    Group g indexes its weight set instead of gathering copies of it."""
+    G, C, d = xe.shape
+    fn = ACTS[act]
+    if counts is None:
+        valid = torch.ones((G, C), dtype=torch.bool, device=xe.device)
+    else:
+        valid = torch.arange(C, device=xe.device)[None, :] < counts[:, None]
+    x = torch.where(valid[..., None], xe, 0).float()
+    eids = (expert_ids.tolist() if expert_ids is not None else range(G))
+    out = torch.empty((G, C, d), dtype=torch.float32, device=xe.device)
+    for g, e in enumerate(eids):
+        h = fn(x[g] @ w_gate[e].float()) * (x[g] @ w_up[e].float())
+        out[g] = h @ w_down[e].float()
+    return torch.where(valid[..., None], out, 0).to(xe.dtype)
+
+
+def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
+               act: str = "silu"):
+    if expert_ids is not None and counts is None:
+        raise ValueError("expert_ids requires counts (grouped ragged)")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+    if xe.device.type == "cpu":
+        return expert_ffn_plain(xe, w_gate, w_up, w_down, counts, expert_ids,
+                                act)
+    if xe.device.type != "cuda":
+        raise ValueError(f"expert_ffn takes CPU or CUDA tensors, got {xe.device}")
+    G, C, d = xe.shape
+    E, d_w, f = w_gate.shape
+    for name, t, shape in (("w_gate", w_gate, (E, d, f)),
+                           ("w_up", w_up, (E, d, f)),
+                           ("w_down", w_down, (E, f, d))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    for name, t in (("xe", xe), ("w_gate", w_gate), ("w_up", w_up),
+                    ("w_down", w_down)):
+        if t.device != xe.device or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous():
+            raise ValueError(f"expert_ffn's CUDA kernel takes contiguous "
+                             f"bfloat16 tensors on {xe.device}; {name} is "
+                             f"{t.dtype} on {t.device}")
+    if d % 64 or f % 64:
+        raise ValueError(f"expert_ffn's CUDA kernel needs d and f multiples "
+                         f"of 64, got d={d} f={f}")
+    if expert_ids is None and counts is not None and counts.shape[0] != G:
+        raise ValueError("counts must have one entry per group")
+    if expert_ids is None and G != E:
+        raise ValueError(f"without expert_ids xe needs one group per expert "
+                         f"({E}), got {G}")
+    ptrs = []
+    for name, t in (("counts", counts), ("expert_ids", expert_ids)):
+        if t is None:
+            ptrs.append(None)
+            continue
+        if t.device != xe.device or t.dtype != torch.int32 \
+                or tuple(t.shape) != (G,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({G},) int32 "
+                             f"tensor on {xe.device}")
+        ptrs.append(t.data_ptr())
+    y = torch.empty_like(xe)
+    if G == 0 or C == 0:
+        return y
+    h = torch.empty((G, C, f), dtype=xe.dtype, device=xe.device)
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    check(library().expert_ffn_launch(
+        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+        ptrs[0], ptrs[1], h.data_ptr(), y.data_ptr(), G, C, d, f,
+        ACT_IDS[act], stream), "expert_ffn")
+    kernels.LAUNCHES["expert_ffn_" + _variant(counts, expert_ids)] += 1
+    return y

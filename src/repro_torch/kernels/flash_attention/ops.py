@@ -1,0 +1,77 @@
+"""GQA flash attention (K3): causal mask, sliding window, tanh softcap,
+query i at key position Sk - Sq + i; ``csrc/flash_attention.cu``.
+
+``flash_attention`` launches the kernel for CUDA tensors and runs
+``flash_attention_plain`` (dense softmax, float32) for CPU tensors.
+q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.build import check, library
+
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, scale: float | None = None):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    q_pos = torch.arange(Sk - Sq, Sk, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        valid &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
+                         f"{q.device}")
+    B, Sq, Hq, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
+            or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k/v must be (B, Sk, Hkv, {D}) matching q, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    Sk, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention's CUDA kernel takes contiguous "
+                             f"bfloat16 tensors on {q.device}; {name} is "
+                             f"{t.dtype} on {t.device}")
+    if D % 16 or D > 128 or Hq % Hkv or 64 % (Hq // Hkv):
+        raise ValueError(f"flash_attention's CUDA kernel needs D % 16 == 0, "
+                         f"D <= 128 and (Hq / Hkv) dividing 64; got D={D} "
+                         f"Hq={Hq} Hkv={Hkv}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return o
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    check(library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, Hq,
+        Hkv, D, int(bool(causal)), int(window), float(softcap), float(scale),
+        stream), "flash_attention")
+    kernels.LAUNCHES["flash_attention"] += 1
+    return o

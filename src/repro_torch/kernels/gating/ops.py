@@ -1,0 +1,72 @@
+"""Fused MoE router (K1): softmax / sigmoid / raw logits, k rounds of
+masked argmax with ties to the lowest index, then the gate transform.
+
+``gating`` launches ``csrc/gating.cu`` for CUDA tensors and runs
+``gating_plain`` for CPU tensors.  Both return ``(gates (T,k) f32,
+idx (T,k) int32, probs (T,E) f32)``; ``probs`` is the softmax of the logits
+(sigmoid for the sigmoid router), the router scores ``route`` returns.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.build import check, library
+
+NEG = -1e30
+ROUTER_TYPES = {"softmax_topk": 0, "topk_softmax": 1, "sigmoid": 2}
+
+
+def gating_plain(logits, top_k: int, router_type: str = "softmax_topk",
+                 renormalize: bool = True):
+    """Plain PyTorch version of the kernel (same arithmetic, same ties)."""
+    x = logits.float()
+    probs = torch.sigmoid(x) if router_type == "sigmoid" \
+        else torch.softmax(x, dim=-1)
+    work = (x if router_type == "topk_softmax" else probs).clone()
+    vals, idxs = [], []
+    for _ in range(top_k):
+        best_i = torch.argmax(work, dim=-1, keepdim=True)   # first maximum
+        vals.append(work.gather(-1, best_i))
+        idxs.append(best_i)
+        work.scatter_(-1, best_i, NEG)
+    gates = torch.cat(vals, -1)
+    idx = torch.cat(idxs, -1).to(torch.int32)
+    if router_type == "topk_softmax":
+        gates = torch.softmax(gates, dim=-1)
+    elif router_type == "softmax_topk" and renormalize:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return gates, idx, probs
+
+
+def gating(logits, top_k: int, router_type: str = "softmax_topk",
+           renormalize: bool = True):
+    """logits (T, E) float32 -> (gates, idx, probs)."""
+    if router_type not in ROUTER_TYPES:
+        raise ValueError(f"router_type must be one of {sorted(ROUTER_TYPES)}, "
+                         f"got {router_type!r}")
+    if logits.device.type == "cpu":
+        return gating_plain(logits, top_k, router_type, renormalize)
+    if logits.device.type != "cuda":
+        raise ValueError(f"gating takes CPU or CUDA tensors, got {logits.device}")
+    if logits.dtype != torch.float32 or logits.dim() != 2:
+        raise ValueError("gating takes (T, E) float32 logits, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    if not logits.is_contiguous():
+        raise ValueError("gating needs contiguous logits")
+    T, E = logits.shape
+    if not (1 <= top_k <= min(E, 16)) or E > 256:
+        raise ValueError(f"gating supports E <= 256 and 1 <= k <= min(E, 16), "
+                         f"got E={E} k={top_k}")
+    gates = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
+    idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
+    probs = torch.empty((T, E), dtype=torch.float32, device=logits.device)
+    if T == 0:
+        return gates, idx, probs
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    check(library().gating_launch(
+        logits.data_ptr(), gates.data_ptr(), idx.data_ptr(), probs.data_ptr(),
+        T, E, top_k, ROUTER_TYPES[router_type], int(bool(renormalize)), stream),
+        "gating")
+    kernels.LAUNCHES["gating"] += 1
+    return gates, idx, probs

@@ -1,0 +1,110 @@
+"""Serving launcher of the port: the continuous-batching server with the
+DALI policy over random weights made from ``--seed``, or over weights
+carried from the JAX package (``--weights``, an ``.npz`` written by
+``repro_torch.bridge.save_npz``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --requests 16 --max-new 32 --policy dali
+
+It calibrates the residual vectors (paper Eq. 11) from a short decode
+trace, serves ``--requests`` prompts drawn from the ``MarkovCorpus`` and
+prints the server's metrics, the DALI telemetry and latency percentiles.
+``--scale smoke`` (default) serves the JAX launcher's model, the smoke
+variant at ``--layers`` layers; ``--scale full`` serves the published
+widths at ``--layers`` layers.  It runs on ``cuda`` unless ``--device
+cpu`` is given; the CUDA kernels take bfloat16, so ``--dtype`` defaults to
+it.  There is no training step here: training is ported later.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+
+def main(argv=None):
+    from repro_torch.bridge import load_npz
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core.residual import calibrate_residuals
+    from repro_torch.core.tracing import capture_decode_trace
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral-8x7b")
+    ap.add_argument("--scale", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--server", default="continuous")
+    ap.add_argument("--policy", default="dali", help="dali | none")
+    ap.add_argument("--offload", default="modeled")
+    ap.add_argument("--weights", default=None,
+                    help=".npz of parameters carried from the JAX package "
+                         "(repro_torch.bridge.save_npz)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--cache-ratio", type=float, default=0.5)
+    ap.add_argument("--no-dali", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.scale == "smoke":
+        cfg = make_smoke(cfg)
+    cfg = cfg.replace(n_layers=args.layers, dtype=args.dtype,
+                      param_dtype=args.dtype)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=args.seed)
+    if args.weights:
+        params = load_npz(args.weights, device=args.device)
+        print(f"== serving {cfg.name} with weights from {args.weights}")
+    else:
+        params = init_model(cfg, seed=args.seed, device=args.device)
+        print(f"== serving {cfg.name} ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}) with random weights, seed "
+              f"{args.seed}")
+
+    policy = "none" if args.no_dali else args.policy
+    dali_cfg = None
+    res_vecs = None
+    if cfg.moe is not None and policy != "none":
+        print("== calibrating residual vectors (paper Eq. 11)")
+        rng = np.random.default_rng(args.seed + 1)
+        calib = np.stack([corpus.sample(rng, args.prompt_len)
+                          for _ in range(8)])
+        tr = capture_decode_trace(params, cfg, calib, n_decode=16,
+                                  device=args.device)
+        res_vecs = np.stack(calibrate_residuals([tr]))
+        dali_cfg = default_dali_config(cfg, cache_ratio=args.cache_ratio)
+
+    spec = ServeSpec(cfg=cfg, server=args.server, policy=policy,
+                     dali_cfg=dali_cfg, batch_size=args.batch,
+                     max_len=args.prompt_len + args.max_new + 2,
+                     offload=OffloadSpec(mode=args.offload),
+                     device=args.device)
+    server = spec.resolve(params).server(res_vecs=res_vecs)
+    rng = np.random.default_rng(args.seed + 2)
+    for i in range(args.requests):
+        server.submit(Request(rid=i,
+                              prompt=corpus.sample(rng, args.prompt_len),
+                              max_new_tokens=args.max_new))
+    done = server.run()
+    lat = [r.latency for r in done]
+    ttft = [r.ttft for r in done if r.first_token_at]
+    print(f"== served {len(done)} requests via {args.server} "
+          f"(policy={policy}, offload={args.offload}, device="
+          f"{server.device}) | {server.metrics.summary()}")
+    print(f"   latency p50={np.percentile(lat, 50):.2f}s "
+          f"p95={np.percentile(lat, 95):.2f}s"
+          + (f" | ttft p50={np.percentile(ttft, 50):.2f}s" if ttft else ""))
+    return server, done
+
+
+if __name__ == "__main__":
+    main()

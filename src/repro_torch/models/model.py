@@ -1,0 +1,198 @@
+"""Full-model assembly (port of ``repro/models/model.py``): embedding ->
+prefix blocks -> stacked super-blocks -> final norm -> unembedding.
+
+Parameters keep the reference's nesting: ``embed``, ``final_norm``,
+``prefix`` (a tuple of per-layer dicts) and ``scan`` (a tuple over the
+period's positions whose leaves are stacked ``(n_super, ...)``).  Where
+the reference runs ``lax.scan`` over the stacked leaves, the port runs a
+Python loop over views of them; caches are stacked the same way and
+updated in place through those views.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+from .blocks import apply_block, init_block, init_block_cache
+from .config import ModelConfig, scan_pattern
+from .layers import apply_norm, embed, init_embedding, init_norm, unembed
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_stack(gen, cfg: ModelConfig, pattern, n_super: int, device):
+    """Stacked params, leaves (n_super, ...), filled one block at a time so
+    the peak is one block above the model's own size."""
+    out = []
+    for kinds in pattern:
+        first = init_block(gen, cfg, kinds, device)
+        stacked = tree_map(lambda a: a.new_empty((n_super,) + a.shape), first)
+        tree_map(lambda s, a: s[0].copy_(a), stacked, first)
+        del first
+        for i in range(1, n_super):
+            blk = init_block(gen, cfg, kinds, device)
+            tree_map(lambda s, a: s[i].copy_(a), stacked, blk)
+            del blk
+        out.append(stacked)
+    return tuple(out)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Random parameters from ``seed`` (a ``torch.Generator`` on the target
+    device).  The draws differ from ``jax.random``; tests that compare with
+    the reference carry its parameters over with ``repro_torch.bridge``."""
+    dev = resolve_device(device)
+    if cfg.encoder is not None:
+        raise NotImplementedError("encoder-decoder models are ported later "
+                                  "(ROADMAP.md module 14)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prefix_pat, period_pat, n_super = scan_pattern(cfg)
+    return {
+        "embed": init_embedding(gen, cfg, dev),
+        "final_norm": init_norm(cfg, dev),
+        "prefix": tuple(init_block(gen, cfg, kinds, dev)
+                        for kinds in prefix_pat),
+        "scan": _init_stack(gen, cfg, period_pat, n_super, dev),
+    }
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+                dtype=None):
+    dev = resolve_device(device)
+    prefix_pat, period_pat, n_super = scan_pattern(cfg)
+    mk = lambda kinds: init_block_cache(cfg, kinds, batch, max_len, dev,
+                                        dtype=dtype)
+    stack = lambda c: tree_map(
+        lambda a: a[None].repeat((n_super,) + (1,) * a.dim()), c)
+    return {
+        "prefix": tuple(mk(kinds) for kinds in prefix_pat),
+        "scan": tuple(stack(mk(kinds)) for kinds in period_pat),
+    }
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+
+def _trim_info(info, trace: bool):
+    if info is None or trace:
+        return info
+    return {k: info[k] for k in ("workload", "aux_loss", "z_loss", "dropped")}
+
+
+def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
+                caches=None, moe_capacity: Optional[int] = None,
+                trace: bool = False, last_logit_only: bool = False,
+                logit_index: Optional[int] = None):
+    """tokens (B, S) int.  Returns (logits, caches, infos): ``caches`` is
+    the given cache tree, updated in place (None without caches); ``infos``
+    is one entry per prefix layer plus one tuple over the period's
+    positions whose leaves are stacked (n_super, ...), as in the reference.
+
+    ``positions`` is (S,) shared by the batch or (B, S) per slot.
+    ``logit_index`` unembeds only that position: the admission prefill of a
+    right-padded prompt samples from position ``length - 1``."""
+    prefix_pat, period_pat, n_super = scan_pattern(cfg)
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed(params["embed"], tokens, cfg)
+
+    infos = []
+    for i, kinds in enumerate(prefix_pat):
+        c = caches["prefix"][i] if caches is not None else None
+        x, _, info = apply_block(params["prefix"][i], x, cfg, kinds,
+                                 positions=positions, cache=c,
+                                 moe_capacity=moe_capacity)
+        infos.append(_trim_info(info, trace))
+
+    per_pos = [[] for _ in period_pat]
+    for s in range(n_super):
+        for p, kinds in enumerate(period_pat):
+            p_slice = tree_map(lambda a: a[s], params["scan"][p])
+            c = (tree_map(lambda a: a[s], caches["scan"][p])
+                 if caches is not None else None)
+            x, _, info = apply_block(p_slice, x, cfg, kinds,
+                                     positions=positions, cache=c,
+                                     moe_capacity=moe_capacity)
+            per_pos[p].append(_trim_info(info, trace))
+    infos.append(tuple(
+        None if rows[0] is None
+        else {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        for rows in per_pos))
+
+    if logit_index is not None:
+        x = x[:, logit_index:logit_index + 1]
+    elif last_logit_only:
+        x = x[:, -1:]
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = unembed(params["embed"], x, cfg)
+    return logits, caches, infos
+
+
+# --------------------------------------------------------------------------
+# info reduction helpers (layer order: prefix, then super-block-major)
+# --------------------------------------------------------------------------
+
+def collect_field(infos, field):
+    """Stack a per-MoE-layer info field -> (n_moe_layers, ...) in true layer
+    order (prefix first, then the stacks super-block-major)."""
+    rows = []
+    for info in infos:
+        if info is None:
+            continue
+        if isinstance(info, tuple):
+            per_pos = [sub[field] for sub in info if sub is not None]
+            if not per_pos:
+                continue
+            stacked = torch.stack(per_pos, dim=1)   # (n_super, n_pos, ...)
+            rows.append(stacked.reshape((-1,) + tuple(stacked.shape[2:])))
+        else:
+            rows.append(info[field][None])
+    return torch.cat(rows, dim=0) if rows else None
+
+
+def stack_routers(params, cfg: ModelConfig):
+    """Router weights (n_moe_layers, d, E) in ``collect_field``'s order."""
+    prefix_pat, period_pat, n_super = scan_pattern(cfg)
+    rows = [params["prefix"][i]["mlp"]["router"][None]
+            for i, (_, mlp) in enumerate(prefix_pat) if mlp == "moe"]
+    per_pos = [params["scan"][p]["mlp"]["router"]
+               for p, (_, mlp) in enumerate(period_pat) if mlp == "moe"]
+    if per_pos:
+        stacked = torch.stack(per_pos, dim=1)       # (n_super, n_pos, d, E)
+        rows.append(stacked.reshape((-1,) + tuple(stacked.shape[2:])))
+    return torch.cat(rows, dim=0) if rows else None
+
+
+def collect_policy_obs(params, infos, cfg: ModelConfig, token_mask=None,
+                       res_vecs=None):
+    """``(workloads, Observation)`` for a policy step from a traced forward
+    (``apply_model(trace=True)``).  With a ``token_mask`` (live slots) the
+    workloads are recounted from per-token choices so the policy sees only
+    real traffic."""
+    from repro_torch.core.engine import masked_workloads
+    from repro_torch.core.policy import Observation
+    gate_in = collect_field(infos, "gate_in")               # (L, T, d)
+    routers = stack_routers(params, cfg)                    # (L, d, E)
+    if token_mask is not None:
+        topk = collect_field(infos, "topk_idx")             # (L, T, K)
+        workloads = masked_workloads(topk, cfg.moe.n_routed, token_mask)
+    else:
+        workloads = collect_field(infos, "workload")        # (L, E)
+    if res_vecs is None:
+        res_vecs = torch.zeros((workloads.shape[0], cfg.d_model),
+                               dtype=torch.float32, device=workloads.device)
+    return workloads, Observation(gate_in=gate_in, routers=routers,
+                                  res_vecs=res_vecs, token_mask=token_mask)

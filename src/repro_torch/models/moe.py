@@ -1,0 +1,212 @@
+"""Mixture-of-Experts layer, full-resident execution (port of
+``repro/models/moe.py`` without the slot-pool, expert-parallel and
+chunked paths).
+
+Routing runs the fused router kernel K1; the expert FFN runs kernel K2 on
+one of two paths, chosen statically from shapes as in the reference
+(``use_sparse_path``):
+
+* **dense** — sort/gather dispatch into (E, C, d) capacity buckets
+  (``local_dispatch``), then K2 in its ragged form with the per-expert
+  ``counts``, so empty capacity tiles skip their work and their weight
+  bytes;
+* **sparse decode path** — K2 in its grouped form with one row group per
+  activated (token, k) slot and ``expert_ids = idx.reshape(-1)``: each group
+  reads its expert's weights by index, so the (T*K, d, f) gathered weight
+  copies of the reference are never built.
+
+The layer returns the same routing observables (``info``) as the
+reference: workloads, top-k choices, gates, router probabilities, gate
+inputs, aux/z losses and drops — what the DALI policy schedules on.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.expert_ffn.ops import expert_ffn
+from repro_torch.kernels.gating.ops import gating
+
+from .config import ModelConfig, MoEConfig
+from .layers import dense_init
+
+# inputs above this many tokens are chunked by the reference
+# (``moe.py:547``); the port does not chunk yet
+MOE_CHUNK_TOKENS = 16384
+SPARSE_CMIN = 4
+SPARSE_OVERHEAD = 4
+
+
+def expert_capacity(cfg_m: MoEConfig, n_tokens: int) -> int:
+    if cfg_m.capacity_factor <= 0:          # "full": no token ever dropped
+        return n_tokens
+    c = int(np.ceil(n_tokens * cfg_m.top_k / cfg_m.n_routed
+                    * cfg_m.capacity_factor))
+    return max(4, int(np.ceil(c / 4)) * 4)
+
+
+def use_sparse_path(m: MoEConfig, n_tokens: int,
+                    capacity: Optional[int]) -> bool:
+    """Take the grouped sparse path when the activated (token, k) slots
+    undercut the dense sweep's minimum bucket work E * C_min by the
+    reference's gather-overhead factor.  Shape-only, as in the reference."""
+    return (capacity is None
+            and n_tokens * m.top_k * SPARSE_OVERHEAD
+            < m.n_routed * SPARSE_CMIN)
+
+
+def init_moe(gen, cfg: ModelConfig, device):
+    m = cfg.moe
+    if m.n_shared:
+        raise NotImplementedError("shared experts are ported with "
+                                  "deepseek-v2-lite (ROADMAP.md module 11)")
+    d = cfg.d_model
+    de = m.d_expert or cfg.d_ff
+    dt = cfg.param_dtype
+
+    def stack(shape):
+        return torch.stack([dense_init(gen, shape, dt, device)
+                            for _ in range(m.n_routed)])
+
+    return {
+        "router": dense_init(gen, (d, m.n_routed), "float32", device),
+        "gate": stack((d, de)),
+        "up": stack((d, de)),
+        "down": stack((de, d)),
+    }
+
+
+def route(params, x_flat, m: MoEConfig):
+    """x_flat (T, d) -> (gates (T,k), idx (T,k), probs (T,E), logits)."""
+    logits = x_flat.float() @ params["router"]               # (T, E)
+    gates, idx, probs = gating(logits.contiguous(), m.top_k, m.router_type,
+                               m.renormalize)
+    if m.router_type == "sigmoid" and m.renormalize:
+        # route renormalises sigmoid gates; the kernel (like the Pallas one)
+        # does not
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return gates, idx, probs, logits
+
+
+def _combine_topk(ys, gates):
+    """Weighted sum of per-(token, k) rows back to (T, d)."""
+    T, K = gates.shape
+    return (ys.reshape(T, K, -1) * gates.to(ys.dtype)[..., None]).sum(1)
+
+
+def grouped_expert_ffn(params, xf, idx, gates, cfg: ModelConfig):
+    """Sparse decode path: one K2 row group per activated (token, k) slot,
+    weights read by expert index (no gathered copies).  xf (T, d),
+    idx/gates (T, K) -> combined output (T, d)."""
+    T, d = xf.shape
+    K = idx.shape[1]
+    xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()  # (T*K,1,d)
+    ones = torch.ones((T * K,), dtype=torch.int32, device=xf.device)
+    ys = expert_ffn(xs, params["gate"], params["up"], params["down"],
+                    counts=ones, expert_ids=idx.reshape(-1).contiguous(),
+                    act=cfg.act)
+    return _combine_topk(ys[:, 0], gates)
+
+
+def expert_ffn_dense(params, xe, cfg: ModelConfig, counts=None):
+    """Capacity-bucket sweep (E, C, d) -> (E, C, d) through K2 (ragged with
+    ``counts``; rows at or beyond counts[e] are zero)."""
+    return expert_ffn(xe.contiguous(), params["gate"], params["up"],
+                      params["down"],
+                      counts=None if counts is None
+                      else counts.to(torch.int32).contiguous(),
+                      act=cfg.act)
+
+
+def _bincount(keys, n: int):
+    """Counts of each value in [0, n) among ``keys``.  A scatter-add, not
+    ``torch.bincount``, which reads the largest key back to the host."""
+    counts = torch.zeros((n,), dtype=torch.int32, device=keys.device)
+    return counts.scatter_add_(0, keys.long(),
+                               torch.ones_like(keys, dtype=torch.int32))
+
+
+def _workload_counts(flat_e, E):
+    """Per-expert token counts over the activated (token, k) slots."""
+    return _bincount(flat_e, E)
+
+
+def local_dispatch(xf, idx, E, K, C):
+    """Sort/gather capacity-bucket dispatch (reference ``moe.py:450``):
+    returns the (E, C, d) buckets (rows past the packed count zero-filled),
+    the per-expert demand, and the combine contract (sorted-slot expert
+    keys ``se``, in-expert ranks ``rank``, inverse permutation ``inv``)."""
+    T = xf.shape[0]
+    dev = xf.device
+    key = idx.reshape(-1).long()                              # (T*K,)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    se, order = torch.sort(key, stable=True)
+    st = flat_t[order]
+    counts_ext = _bincount(key, E + 1).long()
+    counts = counts_ext[:E]
+    offsets = torch.cat([counts_ext.new_zeros(1), counts_ext.cumsum(0)[:-1]])
+    rank = torch.arange(T * K, device=dev) - offsets[se]
+    pos = offsets[:E, None] + torch.arange(C, device=dev)[None, :]   # (E, C)
+    bucket_valid = torch.arange(C, device=dev)[None, :] \
+        < torch.clamp(counts[:, None], max=C)
+    src = st[pos.clamp(0, T * K - 1)]
+    xe = torch.where(bucket_valid[..., None], xf[src], 0)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=dev)
+    return xe, counts.to(torch.int32), se, rank, inv
+
+
+def apply_moe(params, x, cfg: ModelConfig, *,
+              capacity: Optional[int] = None,
+              force_path: Optional[str] = None):
+    """Returns (y, info) with DALI's routing observables (reference
+    ``apply_moe`` without slots, EP, chunking or a validity mask)."""
+    if force_path not in (None, "dense", "sparse"):
+        raise ValueError(f"force_path must be None|'dense'|'sparse', "
+                         f"got {force_path!r}")
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    if T > MOE_CHUNK_TOKENS:
+        raise NotImplementedError(
+            f"{T} tokens exceed MOE_CHUNK_TOKENS={MOE_CHUNK_TOKENS}; chunked "
+            "execution is ported later (ROADMAP.md, MOE_CHUNK_TOKENS item)")
+    E, K = m.n_routed, m.top_k
+    xf = x.reshape(T, d)
+
+    gates, idx, probs, logits = route(params, xf, m)
+    sparse = (force_path == "sparse" if force_path is not None
+              else use_sparse_path(m, T, capacity))
+    if sparse:
+        y = grouped_expert_ffn(params, xf, idx, gates, cfg)
+        counts = _workload_counts(idx.reshape(-1), E)
+        dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+    else:
+        C = capacity if capacity is not None else expert_capacity(m, T)
+        xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C)
+        ye = expert_ffn_dense(params, xe, cfg, counts=counts)    # (E, C, d)
+        keep_s = (rank < C) & (se < E)
+        contrib = ye[se.clamp(0, E - 1), rank.clamp(0, C - 1)]
+        contrib = torch.where(keep_s[:, None], contrib, 0)[inv]
+        y = (contrib.reshape(T, K, d)
+             * gates.to(contrib.dtype)[..., None]).sum(1)
+        dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)
+    y = y.to(x.dtype)
+
+    frac_tokens = counts.float() / (T * K)
+    mean_prob = probs.mean(0)
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    aux_loss = E * (frac_tokens * mean_prob).sum()
+    info = {
+        "workload": counts,                        # (E,) tokens per expert
+        "topk_idx": idx,                           # (T, K)
+        "gates": gates,                            # (T, K)
+        "probs": probs,                            # (T, E) router scores
+        "gate_in": xf,                             # (T, d) gate input
+        "aux_loss": aux_loss * m.aux_loss_weight,
+        "z_loss": z_loss * m.router_z_weight,
+        "dropped": dropped,
+    }
+    return y.reshape(B, S, d), info

@@ -1,0 +1,243 @@
+"""Slot-level continuous batching with prefill-on-admit (port of
+``ContinuousBatchServer`` in ``repro/serving/scheduler.py``).
+
+The server keeps a slot table of ``batch_size`` independent sequences.
+Every step it (1) admits queued requests into free slots — each admission
+is a B = 1 right-padded prefill whose KV rows are copied into the batch
+cache at the slot index, (2) runs ONE batched greedy decode step in which
+every slot sits at its own position, and (3) retires slots whose request
+hit EOS, its token budget or the cache horizon.  The offload policy runs
+after every decode step on the device; its telemetry accumulates there
+and is drained once per flush interval (``TelemetryAggregator``), so the
+decode loop's only host read per step is the batch's new tokens.
+
+The wave server of the reference is ported with the other policies
+(ROADMAP.md, "other policies and the wave server").
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import TelemetryAggregator
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_caches
+from repro_torch.serving.spec import ResolvedServe, ServeSpec
+from repro_torch.serving.steps import make_admit_step, retire_slot
+
+
+class PromptTooLongError(ValueError):
+    """A submitted prompt does not fit the server's KV budget."""
+
+    def __init__(self, n_tokens: int, max_len: int):
+        self.n_tokens = int(n_tokens)
+        self.max_len = int(max_len)
+        super().__init__(
+            f"prompt of {n_tokens} tokens exceeds max_len={max_len} "
+            f"(prompts must be < max_len so at least one generated "
+            f"token fits the cache)")
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (S,) int32
+    max_new_tokens: int = 32
+    submitted_at: float = 0.0
+    not_before: float = 0.0             # virtual arrival time (0 = now)
+    output: List[int] = field(default_factory=list)
+    first_token_at: float = 0.0
+    done_at: float = 0.0
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def latency(self) -> float:
+        return self.done_at - self.submitted_at
+
+
+@dataclass
+class ServeMetrics:
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    steps: int = 0                      # decode steps
+    occupancy_sum: int = 0              # live slots summed over steps
+    requests: int = 0                   # finished requests
+    dali: TelemetryAggregator = field(default_factory=TelemetryAggregator)
+
+    def mean_occupancy(self) -> float:
+        return self.occupancy_sum / self.steps if self.steps else 0.0
+
+    def summary(self) -> str:
+        pf = self.prefill_tokens / self.prefill_s if self.prefill_s else 0
+        dc = self.decode_tokens / self.decode_s if self.decode_s else 0
+        s = (f"steps={self.steps} prefill={pf:.1f} tok/s "
+             f"decode={dc:.1f} tok/s occ={self.mean_occupancy():.2f}")
+        if self.dali.lookups:
+            s += " | " + self.dali.summary()
+        return s
+
+
+def _pop_arrived(queue: deque, now: float) -> Optional[Request]:
+    """FIFO pop of the head request iff its arrival time has passed."""
+    if queue and queue[0].not_before <= now:
+        return queue.popleft()
+    return None
+
+
+def _bucket_len(n: int, min_bucket: int, cap: int) -> int:
+    """Power-of-two padding bucket for prompt lengths."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return max(n, min(b, cap))
+
+
+class ContinuousBatchServer:
+    """Slot-level continuous batching with prefill-on-admit.
+
+    Request outputs INCLUDE the token sampled by the prefill (the first
+    token, which TTFT refers to); ``max_new_tokens`` bounds the total.
+    Build it from a resolved spec (``ServeSpec(...).resolve(params)
+    .server(res_vecs)``) or from keyword arguments, which build that spec
+    (``device`` defaults to ``"cuda"``)."""
+
+    def __init__(self, params, cfg: Optional[ModelConfig] = None,
+                 batch_size: int = 8, max_len: int = 256, eos_id: int = 1,
+                 dali_cfg=None, res_vecs=None, min_bucket: int = 16,
+                 policy=None, offload: str = "modeled", device="cuda",
+                 resolved: Optional[ResolvedServe] = None):
+        if resolved is None:
+            if cfg is None:
+                raise TypeError("ContinuousBatchServer needs cfg or "
+                                "resolved= (ServeSpec.resolve(params))")
+            from repro_torch.serving.spec import OffloadSpec
+            resolved = ServeSpec(
+                cfg=cfg, policy=policy, dali_cfg=dali_cfg,
+                batch_size=batch_size, max_len=max_len, eos_id=eos_id,
+                min_bucket=min_bucket, offload=OffloadSpec(mode=offload),
+                device=device).resolve(params)
+        spec = resolved.spec
+        self._resolved = resolved
+        self.params = resolved.params
+        self.cfg = spec.cfg
+        self.device = resolved.device
+        self.batch = spec.batch_size
+        self.max_len = spec.max_len
+        self.eos = spec.eos_id
+        self.policy = resolved.policy
+        self.res_vecs = (None if res_vecs is None else torch.as_tensor(
+            np.asarray(res_vecs, np.float32), device=self.device))
+        self.min_bucket = spec.min_bucket
+        self.queue: deque[Request] = deque()
+        self.metrics = ServeMetrics()
+        self._prefill = resolved.admit_prefill()
+        self._decode = resolved.decode_step()
+        self._admit = make_admit_step(spec.cfg)
+        a = spec.cfg.attn
+        # rolling (sliding-window) caches keep the LAST S_c positions of a
+        # prefill; right-pad past the window would evict real prompt
+        # tokens, so such configs prefill at exact length
+        self._exact_prefill = bool(a is not None and a.sliding_window
+                                   and a.sliding_window < spec.max_len)
+        # B = 1 cache the admission prefill writes into (in place); its
+        # pos rows are reset to empty before every admission
+        self._fresh_caches = init_caches(spec.cfg, 1, spec.max_len,
+                                         device=self.device)
+
+    def submit(self, req: Request):
+        if not req.submitted_at:
+            req.submitted_at = req.not_before or time.perf_counter()
+        if len(req.prompt) >= self.max_len:
+            raise PromptTooLongError(len(req.prompt), self.max_len)
+        self.queue.append(req)
+
+    def _admit_request(self, state, req: Request, slot: int):
+        t0 = time.perf_counter()
+        L = len(req.prompt)
+        Sb = L if self._exact_prefill else \
+            _bucket_len(L, self.min_bucket, self.max_len)
+        toks = np.zeros((1, Sb), np.int32)
+        toks[0, :L] = req.prompt                     # RIGHT-pad (see steps)
+        fresh = self._fresh_caches
+        for c in list(fresh["prefix"]) + list(fresh["scan"]):
+            c["pos"].fill_(-1)
+        first_tok, fresh = self._prefill(
+            self.params, torch.as_tensor(toks, device=self.device), fresh, L)
+        state = self._admit(state, fresh, first_tok, slot, L)
+        tok = int(first_tok[0, 0])                   # waits for the device
+        t1 = time.perf_counter()
+        self.metrics.prefill_s += t1 - t0
+        self.metrics.prefill_tokens += L
+        req.output.append(tok)
+        req.first_token_at = t1
+        return state
+
+    def _should_retire(self, req: Request) -> bool:
+        return (req.output[-1] == self.eos
+                or len(req.output) >= req.max_new_tokens
+                or len(req.prompt) + len(req.output) >= self.max_len)
+
+    def run(self) -> List[Request]:
+        B = self.batch
+        finished: List[Request] = []
+        state = self._resolved.init_state()
+        slot_req: List[Optional[Request]] = [None] * B
+
+        while self.queue or any(slot_req):
+            now = time.perf_counter()
+            # -- admission: fill freed slots from the queue ----------------
+            for slot in range(B):
+                if slot_req[slot] is not None:
+                    continue
+                req = _pop_arrived(self.queue, now)
+                if req is None:
+                    break
+                state = self._admit_request(state, req, slot)
+                if self._should_retire(req):         # EOS on first token
+                    req.done_at = req.first_token_at
+                    finished.append(req)
+                    state = retire_slot(state, slot)
+                else:
+                    slot_req[slot] = req
+
+            busy = [i for i in range(B) if slot_req[i] is not None]
+            if not busy:
+                if not self.queue:
+                    break
+                time.sleep(max(0.0,
+                               self.queue[0].not_before - time.perf_counter()))
+                continue
+
+            # -- one decode step over the whole slot table -----------------
+            t0 = time.perf_counter()
+            state, _, _ = self._decode(self.params, state, self.res_vecs)
+            toks = state["tokens"][:, 0].tolist()    # the step's one sync
+            t1 = time.perf_counter()
+
+            emitted = len(busy)
+            for i in busy:
+                r = slot_req[i]
+                r.output.append(int(toks[i]))
+                if self._should_retire(r):
+                    r.done_at = t1
+                    finished.append(r)
+                    slot_req[i] = None
+                    state = retire_slot(state, i)
+            self.metrics.decode_tokens += emitted
+            self.metrics.decode_s += t1 - t0
+            self.metrics.steps += 1
+            self.metrics.occupancy_sum += emitted
+            self.metrics.dali.observe(state.get("dali"), n_active=emitted)
+        self.metrics.dali.end_epoch()
+        self.metrics.requests += len(finished)
+        return finished

@@ -1,0 +1,174 @@
+"""Serving step functions (port of ``repro/serving/steps.py`` for
+full-resident continuous batching): admission prefill, admission into the
+slot table, retirement, and the greedy decode step with the in-graph
+offload policy.
+
+Per-slot serve state (continuous batching)::
+
+  state = {
+    "tokens": (B, 1) int32  — last generated token per slot
+    "pos":    (B,)   int32  — every slot at its own sequence offset
+    "active": (B,)   bool   — live slots (admitted, not yet retired)
+    "caches": model caches (see models/model.py)
+    "dali":   policy state (when the policy schedules)
+  }
+
+Unlike the reference, whose steps are pure functions, the admission and
+the decode write the cache tensors in place: a step then never copies the
+whole batch cache to change one slot's rows.  ``retire_slot`` and
+``admit`` also update ``state``'s tensors in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.policy import DaliConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig, layer_pattern
+from repro_torch.models.model import apply_model, collect_policy_obs, init_caches
+
+
+def resolve_policy(policy, cfg: ModelConfig,
+                   dali_cfg: Optional[DaliConfig] = None):
+    """str | policy instance | None -> policy.  ``None`` means "dali" when
+    a ``DaliConfig`` is given, else scheduling off.  A missing
+    ``dali_cfg`` is filled from ``default_dali_config``; non-MoE
+    architectures resolve to the null policy."""
+    from repro_torch.core.policy import make_policy
+    if policy is None:
+        policy = "dali" if dali_cfg is not None else "none"
+    if isinstance(policy, str):
+        if policy == "none" or cfg.moe is None:
+            return make_policy("none")
+        if dali_cfg is None:
+            dali_cfg = default_dali_config(cfg)
+        return make_policy(policy, dali_cfg, top_k=cfg.moe.top_k,
+                           router_type=cfg.moe.router_type)
+    return policy
+
+
+def make_admit_prefill(cfg: ModelConfig,
+                       moe_capacity: Optional[int] = None):
+    """Prefill for admission into a continuous batch.  The prompt arrives
+    RIGHT-padded to a bucket length, so positions 0..length-1 are real and
+    the first token is sampled from the logit at ``length - 1``.  Returns
+    prefill(params, tokens (1, Sb), caches, length: int) ->
+    (next_token (1, 1), caches), the caches written in place."""
+
+    def prefill(params, tokens, caches, length: int):
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        logits, caches, _ = apply_model(params, tokens, cfg,
+                                        positions=positions, caches=caches,
+                                        moe_capacity=moe_capacity,
+                                        logit_index=length - 1)
+        next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        return next_tok, caches
+
+    return prefill
+
+
+def make_admit_step(cfg: ModelConfig):
+    """Returns admit(state, fresh_caches, first_tok, slot, length) -> state,
+    inserting a freshly prefilled request (B = 1 caches) into batch row
+    ``slot`` in place.  Prefix caches hold the batch on axis 0, stacked
+    caches on axis 1 (axis 0 is the super-block).  ``pos`` rows are
+    re-masked so cache slots holding right-pad garbage (position >=
+    length) read as empty (-1): later decode masks never attend to them."""
+
+    def admit(state, fresh_caches, first_tok, slot: int, length: int):
+        for group, axis in (("prefix", 0), ("scan", 1)):
+            for big_c, small_c in zip(state["caches"][group],
+                                      fresh_caches[group]):
+                for key, small in small_c.items():
+                    if key == "pos":
+                        small = torch.where((small >= 0) & (small < length),
+                                            small, -1)
+                    big_c[key].select(axis, slot).copy_(small.select(axis, 0))
+        state["tokens"][slot] = first_tok[0].to(torch.int32)
+        state["pos"][slot] = length
+        state["active"][slot] = True
+        return state
+
+    return admit
+
+
+def retire_slot(state, slot: int):
+    """Mark a slot free; its cache rows are overwritten on next admit."""
+    state["active"][slot] = False
+    return state
+
+
+def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
+                     moe_capacity: Optional[int] = None, policy=None):
+    """Returns decode(params, state, res_vecs=None) -> (state', logits,
+    telemetry), greedy.  ``policy`` (name, policy instance or None — see
+    ``resolve_policy``) is the offload scheduler run after the forward.
+
+    Every row decodes at its own position ``pos`` (B,) and, when
+    scheduling is on, the routing observables are masked by
+    ``state["active"]`` so the policy sees the actual per-step token mix.
+    (The reference's shared-position wave layout comes with the wave
+    server, ROADMAP.md "other policies and the wave server".)"""
+    policy = resolve_policy(policy, cfg, dali_cfg)
+    use_policy = policy.schedules and cfg.moe is not None
+
+    def decode(params, state, res_vecs=None):
+        active = state["active"]
+        logits, caches, infos = apply_model(
+            params, state["tokens"], cfg, positions=state["pos"][:, None],
+            caches=state["caches"], moe_capacity=moe_capacity,
+            trace=use_policy)
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        # retired/empty slots hold position (their cache row is dead
+        # weight until the next admission overwrites it)
+        new_pos = state["pos"] + active.to(torch.int32)
+        new_state = dict(state, tokens=nxt, pos=new_pos, caches=caches)
+        telemetry = {}
+        if use_policy:
+            workloads, obs = collect_policy_obs(
+                params, infos, cfg, token_mask=active, res_vecs=res_vecs)
+            new_pstate, decisions = policy.step(state["dali"], workloads,
+                                                obs)
+            telemetry = decisions.tel
+            new_state["dali"] = new_pstate
+        return new_state, logits, telemetry
+
+    return decode
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
+                     dali_cfg: Optional[DaliConfig] = None, dtype=None,
+                     seed: int = 0, policy=None, device="cuda"):
+    """The per-slot serve state of an empty slot table."""
+    dev = resolve_device(device)
+    state = {
+        "tokens": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((batch,), dtype=torch.bool, device=dev),
+        "caches": init_caches(cfg, batch, max_len, device=dev, dtype=dtype),
+    }
+    policy = resolve_policy(policy, cfg, dali_cfg)
+    if policy.schedules and cfg.moe is not None:
+        state["dali"] = policy.init(seed=seed, device=dev)
+    return state
+
+
+def default_dali_config(cfg: ModelConfig, cache_ratio: float = 0.25,
+                        prefetch_size: int = 1, w_size: int = 4,
+                        u_size: int = 1) -> Optional[DaliConfig]:
+    """Paper defaults: cache 25-50% of experts/layer; (w,u)=(4,1) Mixtral-
+    like, (4,8) for many-expert models (§6.4)."""
+    if cfg.moe is None:
+        return None
+    from repro_torch.core.cost_model import LOCAL_PC, CostModel
+    n_moe = sum(1 for _, mlp in layer_pattern(cfg) if mlp == "moe")
+    E = cfg.moe.n_routed
+    cm = CostModel.for_config(cfg, LOCAL_PC)
+    return DaliConfig.from_cost_model(
+        cm, n_moe_layers=n_moe, n_experts=E,
+        cache_size=max(1, int(E * cache_ratio)),
+        prefetch_size=prefetch_size, w_size=w_size,
+        u_size=min(u_size, max(1, E // 2)))

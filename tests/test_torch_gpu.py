@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``gpu`` marker and skips without a CUDA card
+(decided inside the ``cuda`` fixture, never at import).  This file imports
+no JAX, so it also runs on a machine that has only PyTorch:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: gating idx exact, gates atol 1e-5 (float32 in, float32 out);
+bf16 kernels 3e-2 relative to max |ref| (tests/test_kernels.py's bf16
+tolerance: the kernels round h and P to bf16 where the plain versions keep
+float32).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.expert_ffn.ops import expert_ffn, expert_ffn_plain
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
+from repro_torch.kernels.gating.ops import gating, gating_plain
+
+pytestmark = pytest.mark.gpu
+BF16_TOL = 3e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rel_err(y, r):
+    r = r.float()
+    return float((y.float() - r).abs().max()) / (float(r.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("T,E,k,rt,renorm", [
+    (128, 8, 2, "topk_softmax", True),
+    (256, 64, 6, "softmax_topk", True),
+    (64, 128, 1, "sigmoid", False),
+    (100, 16, 4, "softmax_topk", False),
+    (512, 128, 8, "softmax_topk", True),
+])
+def test_gating_kernel_matches_plain(cuda, T, E, k, rt, renorm):
+    rng = np.random.default_rng(0)
+    lg = torch.tensor(rng.standard_normal((T, E)) * 2, dtype=torch.float32,
+                      device=cuda)
+    before = kernels.LAUNCHES["gating"]
+    g1, i1, p1 = gating(lg, k, rt, renorm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gating"] == before + 1
+    g2, i2, p2 = gating_plain(lg, k, rt, renorm)
+    assert torch.equal(i1, i2)
+    torch.testing.assert_close(g1, g2, atol=1e-5, rtol=0)
+    torch.testing.assert_close(p1, p2, atol=1e-6, rtol=1e-5)
+
+
+def _ffn_inputs(dev, G, E, C, d, f, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda shape, s: torch.tensor(rng.standard_normal(shape) * s,
+                                      dtype=torch.bfloat16, device=dev)
+    return t((G, C, d), 1.0), t((E, d, f), 0.05), t((E, d, f), 0.05), \
+        t((E, f, d), 0.05)
+
+
+@pytest.mark.parametrize("counts", [None, [0, 16, 37, 5], [0, 0, 0, 0],
+                                    [64, 64, 64, 64], [70, 1, 0, 33]])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_dense_ragged_matches_plain(cuda, counts, act):
+    E, C, d, f = 4, 64, 128, 256
+    xe, wg, wu, wd = _ffn_inputs(cuda, E, E, C, d, f)
+    cnt = None if counts is None else torch.tensor(counts, dtype=torch.int32,
+                                                   device=cuda)
+    key = "expert_ffn_dense" if cnt is None else "expert_ffn_ragged"
+    before = kernels.LAUNCHES[key]
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt, act=act)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    r = expert_ffn_plain(xe, wg, wu, wd, counts=cnt, act=act)
+    assert _rel_err(y, r) < BF16_TOL
+    if cnt is not None:          # garbage tails never leak: rows are zero
+        rows = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+        assert not y[rows].float().abs().sum()
+
+
+def test_expert_ffn_grouped_matches_plain(cuda):
+    E, G, C, d, f = 3, 6, 20, 64, 192
+    xe, wg, wu, wd = _ffn_inputs(cuda, G, E, C, d, f, seed=1)
+    cnt = torch.tensor([0, 20, 7, 0, 12, 1], dtype=torch.int32, device=cuda)
+    eids = torch.tensor([0, 0, 1, 1, 2, 2], dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["expert_ffn_grouped"]
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt, expert_ids=eids)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expert_ffn_grouped"] == before + 1
+    r = expert_ffn_plain(xe, wg, wu, wd, counts=cnt, expert_ids=eids)
+    assert _rel_err(y, r) < BF16_TOL
+    rows = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+    assert not y[rows].float().abs().sum()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,cap", [
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (2, 128, 256, 8, 8, 32, True, 0, 50.0),
+    (1, 64, 192, 4, 1, 64, True, 64, 0.0),
+    (2, 128, 128, 2, 2, 128, False, 0, 0.0),
+    (1, 256, 256, 16, 2, 64, True, 0, 30.0),
+    (1, 100, 100, 32, 8, 128, True, 0, 0.0),     # ragged admission bucket
+    (1, 37, 37, 4, 1, 64, True, 0, 0.0),         # ragged, one query tile
+])
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
+                                       window, cap):
+    rng = np.random.default_rng(2)
+    t = lambda shape: torch.tensor(rng.standard_normal(shape),
+                                   dtype=torch.bfloat16, device=cuda)
+    q, k, v = t((B, Sq, Hq, D)), t((B, Sk, Hkv, D)), t((B, Sk, Hkv, D))
+    before = kernels.LAUNCHES["flash_attention"]
+    o = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    r = flash_attention_plain(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    assert _rel_err(o, r) < BF16_TOL
+
+
+def test_cuda_wrappers_refuse_unsupported_inputs(cuda):
+    """A CUDA tensor launches the kernel or raises: never the plain path."""
+    x = torch.zeros((2, 4, 64), dtype=torch.float32, device=cuda)
+    w = torch.zeros((2, 64, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        expert_ffn(x, w, w, w)
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
