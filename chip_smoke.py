@@ -14,7 +14,9 @@ outside a checkout.  Phases (any failure exits non-zero):
 3. kernels — each kernel at the main path's shapes against its plain
    PyTorch version on the card (exact indices for the router; 3e-2
    relative to max |ref| for the bfloat16 kernels), with its time, the
-   plain version's, one PyTorch library call's and the card's bound;
+   plain version's, one PyTorch library call's (CUDA events, and for the
+   kernel and the library call also device time from a torch.profiler
+   window) and the card's bound; then each wrapper's host cost per call;
 4. reference — the port on the card (kernels) against the port on the CPU
    (plain versions) on the same small bfloat16 model;
 5. serve   — Mixtral-8x7B at its published widths, depth cut to 8
@@ -83,6 +85,38 @@ def cuda_ms(torch, fn, budget_s=0.25, max_iters=200):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=20):
+    """Device time of ``fn`` per call: the summed durations of the card's
+    own activity (kernels, copies, fills) that ``torch.profiler`` records
+    over ``iters`` calls.  Unlike ``cuda_ms`` it does not include the gaps
+    in which the card waits for the host to issue the next launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
+def host_us(torch, fn, calls=1000):
+    """Host microseconds per call of ``fn`` over ``calls`` calls issued
+    back to back without synchronising (what the caller's thread pays)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound(nbytes, flops, peak):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / peak * 1e3
@@ -112,15 +146,21 @@ def kernel_phase(torch, cfg):
     E, K, d, f = m.n_routed, m.top_k, cfg.d_model, m.d_expert
     rows = []
 
-    def record(name, shape, err, ok, ms, plain_ms, lib_ms, b):
+    def record(name, shape, err, ok, fn, plain_fn, lib_fn, b, plain_kw=None):
+        """Time the kernel (``fn``), its plain version and the library call
+        by CUDA events and the kernel and library call by device time."""
+        ms, dms = cuda_ms(torch, fn), device_ms(torch, fn)
+        plain_ms = cuda_ms(torch, plain_fn, **(plain_kw or {}))
+        lib_ms, lib_dms = cuda_ms(torch, lib_fn), device_ms(torch, lib_fn)
         rows.append({"name": name, "shape": shape, "max_abs_err": err,
-                     "ok": ok, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": b[0],
+                     "ok": ok, "ms": ms, "device_ms": dms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_device_ms": lib_dms, "bound_ms": b[0],
                      "bound_by": b[1]})
         print(f"kernel {name} [{shape}]: max_abs_err={err:.3e} "
               f"{'pass' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms="
-              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"device_ms={dms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} library_device_ms={lib_dms:.4f} "
               f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
     # -- K1: router over T rows of E logits -------------------------------
@@ -131,14 +171,11 @@ def kernel_phase(torch, cfg):
         torch.cuda.synchronize()
         ok = bool(torch.equal(i1, i2)) and float((g1 - g2).abs().max()) < 1e-5
         err = max(float((g1 - g2).abs().max()), float((p1 - p2).abs().max()))
-        ms = cuda_ms(torch, lambda: gating(lg, K, m.router_type,
-                                           m.renormalize))
-        pms = cuda_ms(torch, lambda: gating_plain(lg, K, m.router_type,
-                                                  m.renormalize))
-        lms = cuda_ms(torch, lambda: torch.softmax(torch.topk(lg, K).values,
-                                                   -1))
         nbytes = T * E * 4 * 2 + T * K * 8
-        record("gating", f"T={T} E={E} k={K}", err, ok, ms, pms, lms,
+        record("gating", f"T={T} E={E} k={K}", err, ok,
+               lambda: gating(lg, K, m.router_type, m.renormalize),
+               lambda: gating_plain(lg, K, m.router_type, m.renormalize),
+               lambda: torch.softmax(torch.topk(lg, K).values, -1),
                bound(nbytes, T * E * (K + 4), F32_FLOP_S))
 
     # -- K2: one Mixtral layer's experts ----------------------------------
@@ -166,16 +203,11 @@ def kernel_phase(torch, cfg):
             tail = torch.arange(xe.shape[1], device=dev)[None] \
                 >= counts[:, None]
             ok = ok and not bool(y[tail].float().abs().sum())
-        ms = cuda_ms(torch, lambda: expert_ffn(xe, wg, wu, wd, counts=counts,
-                                               expert_ids=eids))
-        pms = cuda_ms(torch, lambda: expert_ffn_plain(
-            xe, wg, wu, wd, counts=counts, expert_ids=eids), budget_s=0.5,
-            max_iters=20)
         if eids is None:
-            lms = cuda_ms(torch, lambda: lib_ffn(xe, wg, wu, wd))
+            lib = lambda: lib_ffn(xe, wg, wu, wd)
         else:
             el = eids.long()
-            lms = cuda_ms(torch, lambda: lib_ffn(xe, wg[el], wu[el], wd[el]))
+            lib = lambda: lib_ffn(xe, wg[el], wu[el], wd[el])
         G, C = xe.shape[0], xe.shape[1]
         valid = (torch.full((G,), C, device=dev) if counts is None
                  else counts.clamp(0, C))
@@ -184,10 +216,15 @@ def kernel_phase(torch, cfg):
         n_experts = len(set(ids[used].tolist()))
         n_rows = int(valid.sum())
         nbytes = n_experts * 3 * d * f * 2 + n_rows * d * 2 + G * C * d * 2
-        record(name, shape, err, ok, ms, pms, lms,
-               bound(nbytes, 6.0 * d * f * n_rows, BF16_FLOP_S))
+        record(name, shape, err, ok,
+               lambda: expert_ffn(xe, wg, wu, wd, counts=counts,
+                                  expert_ids=eids),
+               lambda: expert_ffn_plain(xe, wg, wu, wd, counts=counts,
+                                        expert_ids=eids), lib,
+               bound(nbytes, 6.0 * d * f * n_rows, BF16_FLOP_S),
+               plain_kw=dict(budget_s=0.5, max_iters=20))
 
-    for T in (256, 8):                  # admission bucket, decode batch
+    for T in (256, 64, 8):              # admission buckets, decode batch
         C = expert_capacity(m, T)
         xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
         ffn_case("expert_ffn_ragged", f"T={T} E={E} C={C} d={d} f={f}", xe,
@@ -205,7 +242,7 @@ def kernel_phase(torch, cfg):
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
     Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
-    for S in (128, 512):
+    for S in (128, 256, 512):
         q = torch.randn((1, S, Hq, D), generator=gen, device=dev).bfloat16()
         k = torch.randn((1, S, Hkv, D), generator=gen, device=dev).bfloat16()
         v = torch.randn((1, S, Hkv, D), generator=gen, device=dev).bfloat16()
@@ -214,20 +251,35 @@ def kernel_phase(torch, cfg):
         torch.cuda.synchronize()
         err = float((o.float() - r.float()).abs().max())
         ok = rel_err(o, r) < BF16_TOL
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
-        pms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v,
-                                                           causal=True))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lms = cuda_ms(torch, lambda: torch.nn.functional
-                      .scaled_dot_product_attention(qt, kt, vt,
-                                                    is_causal=True,
-                                                    enable_gqa=True))
         pairs = S * (S + 1) // 2
         record("flash_attention",
-               f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok, ms,
-               pms, lms, bound((2 * S * Hq + 2 * S * Hkv) * D * 2,
-                               4.0 * Hq * D * pairs, BF16_FLOP_S))
+               f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok,
+               lambda: flash_attention(q, k, v, causal=True),
+               lambda: flash_attention_plain(q, k, v, causal=True),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               bound((2 * S * Hq + 2 * S * Hkv) * D * 2,
+                     4.0 * Hq * D * pairs, BF16_FLOP_S))
     torch.cuda.empty_cache()
+
+    # -- host cost per wrapper call at decode forms; narrow widths so that
+    # the card keeps pace and the host's own time per call is what is read
+    lg = torch.randn((8, E), generator=gen, device=dev)
+    w_ = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=dev).bfloat16()
+    ws = (w_(E, 256, 256), w_(E, 256, 256), w_(E, 256, 256))
+    xe, ones = w_(4, 1, 256), torch.ones((4,), dtype=torch.int32, device=dev)
+    eids = torch.arange(4, dtype=torch.int32, device=dev)
+    q, kv = w_(1, 32, Hq, D), w_(1, 32, Hkv, D)
+    for name, fn in (
+            ("gating T=8", lambda: gating(lg, K, m.router_type,
+                                          m.renormalize)),
+            ("expert_ffn grouped G=4 C=1 d=f=256",
+             lambda: expert_ffn(xe, *ws, counts=ones, expert_ids=eids)),
+            ("flash_attention S=32", lambda: flash_attention(q, kv, kv))):
+        print(f"host {name}: {host_us(torch, fn):.1f} us per call "
+              "(1000 calls, no synchronise)", flush=True)
     return rows
 
 
@@ -516,9 +568,11 @@ def main():
                     "replaces": REPLACES[r["name"]],
                     "launches": counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"],
+                    "library_device_ms": r["library_device_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     failed = [p for p, ok in (("kernels", kernels_ok),

@@ -24,6 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gating.cu", "expert_ffn.cu", "flash_attention.cu")
+HEADERS = ("hopper.cuh",)    # included by the sources: part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,9 +38,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # logits, gates, idx, probs, T, E, k, router_type, renormalize, stream
     "gating_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xe, wg, wu, wd, counts, expert_ids, h, y, G, C, d, f, act, stream
+    # xe, wg, wu, wd, counts, expert_ids, h, y, G, E, C, d, f, act,
+    # mw, ns_up, ns_down, stream
     "expert_ffn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P),
+                          _I, _I, _I, _I, _P),
     # q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _P),
@@ -58,7 +60,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -20,6 +20,20 @@ ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
 ACT_IDS = {"silu": 0, "gelu": 1, "relu": 2}
 
 
+def plan(C: int, d: int, f: int) -> tuple[int, int, int]:
+    """Tile plan of the CUDA kernel: (mw, ns_up, ns_down).
+
+    A block covers 64 * mw rows of a group (the whole capacity bucket up to
+    128 rows, so each weight byte leaves device memory once per call) and
+    64 * ns output columns.  Decode buckets (C <= 64) take 64-row tiles:
+    smaller blocks, two to an SM.  N tiles are 128 columns wide wherever
+    that divides the width (two adjacent TMA boxes per weight row), else
+    64.
+    """
+    return (1 if C <= 64 else 2, 2 if f % 128 == 0 else 1,
+            2 if d % 128 == 0 else 1)
+
+
 def _variant(counts, expert_ids) -> str:
     if expert_ids is not None:
         return "grouped"
@@ -88,6 +102,11 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
             raise ValueError(f"{name} must be a contiguous ({G},) int32 "
                              f"tensor on {xe.device}")
         ptrs.append(t.data_ptr())
+    for name, t in (("xe", xe), ("w_gate", w_gate), ("w_up", w_up),
+                    ("w_down", w_down)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"expert_ffn's CUDA kernel needs 16-byte-aligned "
+                             f"tensors; {name} is not")
     y = torch.empty_like(xe)
     if G == 0 or C == 0:
         return y
@@ -95,7 +114,7 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     stream = torch.cuda.current_stream(xe.device).cuda_stream
     check(library().expert_ffn_launch(
         xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        ptrs[0], ptrs[1], h.data_ptr(), y.data_ptr(), G, C, d, f,
-        ACT_IDS[act], stream), "expert_ffn")
+        ptrs[0], ptrs[1], h.data_ptr(), y.data_ptr(), G, E, C, d, f,
+        ACT_IDS[act], *plan(C, d, f), stream), "expert_ffn")
     kernels.LAUNCHES["expert_ffn_" + _variant(counts, expert_ids)] += 1
     return y

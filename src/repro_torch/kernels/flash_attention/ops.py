@@ -64,6 +64,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention's CUDA kernel needs D % 16 == 0, "
                          f"D <= 128 and (Hq / Hkv) dividing 64; got D={D} "
                          f"Hq={Hq} Hkv={Hkv}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention's CUDA kernel needs 16-byte-"
+                             f"aligned tensors; {name} is not")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
     if B == 0 or Sq == 0:

@@ -101,7 +101,49 @@ def test_expert_ffn_grouped_matches_plain(cuda):
     assert not y[rows].float().abs().sum()
 
 
+@pytest.mark.parametrize("C", [12, 20, 40, 80, 150])
+@pytest.mark.parametrize("f", [192, 256])
+def test_expert_ffn_capacity_buckets_match_plain(cuda, C, f):
+    """The path's prefill buckets (C = 12..80), one bucket past the 128-row
+    M tile, and an f that is not a multiple of the 128-wide N tile; counts
+    cover an empty, a partial and a full expert."""
+    E, d = 4, 128
+    xe, wg, wu, wd = _ffn_inputs(cuda, E, E, C, d, f, seed=C)
+    cnt = torch.tensor([0, C // 3 + 1, C, C - 1], dtype=torch.int32,
+                       device=cuda)
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    r = expert_ffn_plain(xe, wg, wu, wd, counts=cnt)
+    assert _rel_err(y, r) < BF16_TOL
+    rows = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+    assert not y[rows].float().abs().sum()
+    y = expert_ffn(xe, wg, wu, wd)                       # dense: every row
+    torch.cuda.synchronize()
+    assert _rel_err(y, expert_ffn_plain(xe, wg, wu, wd)) < BF16_TOL
+
+
+@pytest.mark.parametrize("C", [1, 4, 80])
+def test_expert_ffn_grouped_repeated_ids_match_plain(cuda, C):
+    E, G, d, f = 4, 6, 128, 256
+    xe, wg, wu, wd = _ffn_inputs(cuda, G, E, C, d, f, seed=3)
+    cnt = torch.tensor([C, C, max(C - 1, 0), C, 0, C], dtype=torch.int32,
+                       device=cuda)
+    eids = torch.tensor([2, 2, 2, 0, 3, 0], dtype=torch.int32, device=cuda)
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt, expert_ids=eids)
+    torch.cuda.synchronize()
+    r = expert_ffn_plain(xe, wg, wu, wd, counts=cnt, expert_ids=eids)
+    assert _rel_err(y, r) < BF16_TOL
+    rows = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+    assert not y[rows].float().abs().sum()
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,cap", [
+    (1, 32, 32, 32, 8, 128, True, 0, 0.0),       # smallest path bucket
+    (1, 256, 256, 32, 8, 128, True, 0, 0.0),     # largest path bucket
+    (1, 20, 100, 8, 2, 128, True, 0, 0.0),       # Sk tail inside a TMA box
+    (2, 77, 77, 8, 2, 64, False, 0, 0.0),
+    (1, 48, 48, 6, 3, 48, True, 0, 0.0),         # D not a multiple of 64
+    (1, 40, 130, 16, 2, 80, True, 32, 10.0),
     (1, 128, 128, 4, 2, 64, True, 0, 0.0),
     (2, 128, 256, 8, 8, 32, True, 0, 50.0),
     (1, 64, 192, 4, 1, 64, True, 64, 0.0),
@@ -123,6 +165,23 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal,
     r = flash_attention_plain(q, k, v, causal=causal, window=window,
                               softcap=cap)
     assert _rel_err(o, r) < BF16_TOL
+
+
+def test_flash_attention_tail_never_reads_the_next_batch(cuda):
+    """B = 2 with Sk = 77: batch 0's second key tile runs past Sk.  Batch
+    1's first value rows are inf, so a tail that read them (0 * inf) would
+    turn batch 0's output into NaN; the kernel must read zeros there."""
+    B, S, Hq, Hkv, D = 2, 77, 8, 2, 128
+    rng = np.random.default_rng(4)
+    t = lambda shape: torch.tensor(rng.standard_normal(shape),
+                                   dtype=torch.bfloat16, device=cuda)
+    q, k, v = t((B, S, Hq, D)), t((B, S, Hkv, D)), t((B, S, Hkv, D))
+    v[1, :64] = float("inf")
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    r = flash_attention_plain(q[:1], k[:1], v[:1], causal=True)
+    assert bool(torch.isfinite(o[0]).all())
+    assert _rel_err(o[:1], r) < BF16_TOL
 
 
 def test_cuda_wrappers_refuse_unsupported_inputs(cuda):
