@@ -24,7 +24,15 @@ outside a checkout.  Phases (any failure exits non-zero):
    then ``MarkovCorpus`` requests through ``ContinuousBatchServer`` with
    the ``dali`` policy at batch 8 and at batch 2.  The kernel launch
    counters are zeroed just before this phase and read just after it;
-   every kernel of the path must have launched.
+   every kernel of the path must have launched;
+6. offload — physical expert offload (pinned host store, device slot
+   pool): at 8 layers the batch-2 requests of phase 5 in the blocking,
+   overlap and pipelined modes with the fetch tier must give phase 5's
+   tokens, and the host tier's first-step logits must be within 3e-2; then
+   Mixtral-8x7B as deep as the host can pin (all 32 layers where it can),
+   served pipelined at two cache ratios, must give identical tokens with
+   peak device memory below the model's weight bytes.  Its launch counts
+   are read on their own, like phase 5's.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``.
@@ -163,7 +171,15 @@ def kernel_phase(torch, cfg):
               f"library_ms={lib_ms:.4f} library_device_ms={lib_dms:.4f} "
               f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
-    # -- K1: router over T rows of E logits -------------------------------
+    # -- K1: router over T rows of E logits, beside the floor of a kernel
+    # that does nothing with K1's launch shape --------------------------
+    from repro_torch.kernels.gating.ops import launch_floor
+    floor = {}
+    for T in (256, 8):
+        floor[T] = (device_ms(torch, lambda: launch_floor(T)),
+                    cuda_ms(torch, lambda: launch_floor(T)))
+        print(f"floor no-op kernel, K1's launch shape T={T}: device_ms="
+              f"{floor[T][0]:.4f} kernel_ms={floor[T][1]:.4f}", flush=True)
     for T in (256, 8):
         lg = torch.randn((T, E), generator=gen, device=dev) * 2
         g1, i1, p1 = gating(lg, K, m.router_type, m.renormalize)
@@ -177,6 +193,7 @@ def kernel_phase(torch, cfg):
                lambda: gating_plain(lg, K, m.router_type, m.renormalize),
                lambda: torch.softmax(torch.topk(lg, K).values, -1),
                bound(nbytes, T * E * (K + 4), F32_FLOP_S))
+        rows[-1]["floor_device_ms"], rows[-1]["floor_ms"] = floor[T]
 
     # -- K2: one Mixtral layer's experts ----------------------------------
     s = 1.0 / math.sqrt(d)
@@ -184,6 +201,7 @@ def kernel_phase(torch, cfg):
     wu = (torch.randn((E, d, f), generator=gen, device=dev) * s).bfloat16()
     wd = (torch.randn((E, f, d), generator=gen, device=dev)
           / math.sqrt(f)).bfloat16()
+    ws = (wg, wu, wd)
 
     def routed_counts(T):
         idx = torch.randint(0, E, (T, K), generator=gen, device=dev)
@@ -193,7 +211,8 @@ def kernel_phase(torch, cfg):
         h = torch.nn.functional.silu(torch.bmm(xe, wg_)) * torch.bmm(xe, wu_)
         return torch.bmm(h, wd_)
 
-    def ffn_case(name, shape, xe, counts, eids):
+    def ffn_case(name, shape, xe, counts, eids, weights=None):
+        wg, wu, wd = weights or ws
         y = expert_ffn(xe, wg, wu, wd, counts=counts, expert_ids=eids)
         r = expert_ffn_plain(xe, wg, wu, wd, counts=counts, expert_ids=eids)
         torch.cuda.synchronize()
@@ -237,7 +256,25 @@ def kernel_phase(torch, cfg):
                            dtype=torch.int32))
     xe = torch.randn((E, 16, d), generator=gen, device=dev).bfloat16()
     ffn_case("expert_ffn_dense", f"E={E} C=16 d={d} f={f}", xe, None, None)
-    del wg, wu, wd, xe
+    # the offload path's shapes: the prefill sweep's pool launch (8 groups
+    # of the T=256 bucket, the 5 pooled experts' with expert_ids = slots)
+    # and the decode miss launch (batch 2: 4 groups, 2 of them misses, over
+    # the miss-staging rows); a pool / staging stack is the K2 weight set
+    C = expert_capacity(m, 256)
+    counts = routed_counts(256)
+    counts[5:] = 0                      # experts 5..7 are not pooled
+    xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
+    ffn_case("expert_ffn_grouped", f"pool sweep G={E} C={C} S=5 d={d} f={f}",
+             xe, counts, torch.tensor([0, 1, 2, 3, 4, 0, 0, 0],
+                                      dtype=torch.int32, device=dev),
+             weights=tuple(w[:5].contiguous() for w in (wg, wu, wd)))
+    xe = torch.randn((2 * K, 1, d), generator=gen, device=dev).bfloat16()
+    ffn_case("expert_ffn_grouped", f"decode miss G={2 * K} C=1 staging=2 "
+             f"d={d} f={f}", xe,
+             torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev),
+             torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev),
+             weights=tuple(w[6:8].contiguous() for w in (wg, wu, wd)))
+    del wg, wu, wd, ws, xe
 
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
@@ -409,6 +446,7 @@ def serve_phase(torch, kernels, name):
         params, cfg, calib, n_decode=8)]))
     dali_cfg = default_dali_config(cfg, cache_ratio=0.5)
     results = []
+    batch2 = []                            # phase 6 re-serves these
     for batch, n_req in ((8, 16), (2, 4)):
         spec = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dali_cfg,
                          batch_size=batch, max_len=256, eos_id=-1,
@@ -423,6 +461,8 @@ def serve_phase(torch, kernels, name):
         done = server.run()
         wall = time.perf_counter() - t0
         results.append((batch, server, done, wall))
+        if batch == 2:
+            batch2 = [(r.prompt, r.output) for r in reqs]
     torch.cuda.synchronize()
     counts = kernels.launch_counts()       # ... and ends here
     peak = torch.cuda.max_memory_allocated()
@@ -465,19 +505,25 @@ def serve_phase(torch, kernels, name):
         server.submit(Request(rid=i, prompt=corpus.sample(
             rng, int(rng.integers(24, 201))), max_new_tokens=16))
     profile_window(torch, server, name)
-    return ok and finite and shape_ok, counts
+    ctx = {"params": params, "cfg": cfg, "batch2": batch2,
+           "res_vecs": res_vecs}
+    return ok and finite and shape_ok, counts, ctx
 
 
 KERNEL_GROUPS = (("K2 expert_ffn", ("ffn_gate_up_kernel", "ffn_down_kernel")),
                  ("K3 flash_attention", ("flash_kernel",)),
                  ("K1 gating", ("gating_kernel",)),
+                 ("K1 floor (no-op kernel, not on the path)",
+                  ("noop_kernel",)),
                  ("matmul (projections, router, lm head)",
                   ("gemm", "gemv", "cutlass", "xmma", "splitK")),
                  ("sort / scatter / index", ("sort", "Sort", "scatter",
-                                             "index", "gather", "Scan")))
+                                             "index", "gather", "Scan")),
+                 ("copies host to device (expert fetches, streaming)",
+                  ("Memcpy HtoD",)))
 
 
-def profile_window(torch, server, name):
+def profile_window(torch, server, name, label="batch=8 serve"):
     """Device busy share and device time by kernel group over one serve."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -504,7 +550,7 @@ def profile_window(torch, server, name):
         else:
             groups["other (elementwise, reductions, copies)"] += us
     mt = server.metrics
-    print(f"profile batch=8 serve: wall {wall_us / 1e3:.1f} ms "
+    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms "
           f"(prefill {mt.prefill_s * 1e3:.1f} ms, decode "
           f"{mt.decode_s * 1e3:.1f} ms over {mt.steps} steps), device busy "
           f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of wall, idle "
@@ -513,6 +559,277 @@ def profile_window(torch, server, name):
         print(f"profile   {g}: {us / 1e3:.2f} ms "
               f"({100 * us / max(busy, 1e-9):.1f}% of device time)",
               flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 6: physical offload (pinned host store + device slot pool)
+# --------------------------------------------------------------------------
+
+MODES = ("blocking", "overlap", "pipelined")
+HOST_RESERVE = 8 * 2**30     # host bytes left unpinned at full depth
+
+
+def mem_available():
+    """The host's MemAvailable in bytes (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def settled_mem_available(torch, min_s=6.0, limit_s=120.0):
+    """MemAvailable once freed pinned pages are back: after a large pinned
+    store is freed, the host gets its pages back over some seconds (a
+    reading taken at once was 40 GiB short on the H100 machine).  Polls
+    for at least ``min_s`` and until it rises by under 0.5 GiB in 2 s."""
+    t0 = time.perf_counter()
+    last = mem_available()
+    while time.perf_counter() - t0 < limit_s:
+        torch.cuda.synchronize()
+        time.sleep(2.0)
+        now = mem_available()
+        if now - last < 2**29 and time.perf_counter() - t0 >= min_s:
+            return now, time.perf_counter() - t0
+        last = now
+    return last, time.perf_counter() - t0
+
+
+def offload_line(tag, server, done, wall, name):
+    """One reading of an offloaded serve: rates, counters, miss reads."""
+    import numpy as np
+    mt, st = server.metrics, server.store.stats()
+    ttft = [r.ttft for r in done]
+    print(f"offload {tag}: {len(done)} requests, {mt.steps} steps in "
+          f"{wall:.2f} s | decode {mt.decode_tokens / mt.decode_s:.1f} "
+          f"tok/s, prefill {mt.prefill_tokens / mt.prefill_s:.1f} tok/s, "
+          f"TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | h2d_rows="
+          f"{st['h2d_rows']} fallback_rows={st['fallback_rows']} "
+          f"fallback_fetches={st['fallback_fetches']} prefill_fetch_rows="
+          f"{st['prefill_fetch_rows']} prefill_waves={st['prefill_waves']} "
+          f"| miss reads {st['miss_reads']} over {mt.steps} decode steps = "
+          f"{st['miss_reads'] / max(mt.steps, 1):.1f} per step "
+          f"({server.store.n_layers} MoE layers), prefill "
+          f"{st['prefill_miss_reads']} | on {name}", flush=True)
+
+
+def serve_offloaded(torch, cfg, params, prompts, mode, dali_cfg, batch,
+                    max_new, res_vecs=None):
+    """Serve ``prompts`` through ContinuousBatchServer with the dali policy
+    and a physical offload mode (fetch tier); returns (server, finished
+    requests, wall seconds)."""
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    spec = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dali_cfg,
+                     batch_size=batch, max_len=256, eos_id=-1,
+                     offload=OffloadSpec(mode=mode))
+    server = spec.resolve(params).server(res_vecs=res_vecs)
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    return server, done, time.perf_counter() - t0
+
+
+def free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def offload_phase(torch, kernels, name, ctx):
+    """(a) 8 layers, the serve phase's weights and batch-2 requests: every
+    mode with the fetch tier gives the full-resident tokens; (b) the
+    deepest depth the host can pin (up to 32 layers): pipelined + fetch at
+    two cache ratios gives the same tokens, with peak device memory below
+    the model's weight bytes; (c) 8 layers again: the host tier's
+    first-step logits are close to full-resident's."""
+    import weakref
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.model import (apply_model, host_empty,
+                                          init_caches, init_model)
+    from repro_torch.models.moe import is_expert_leaf
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    t_phase = time.perf_counter()
+    ok = True
+    params, cfg = ctx.pop("params"), ctx["cfg"]
+    print(f"offload: MemAvailable {mem_available() / 2**30:.1f} GiB at the "
+          "start of the phase", flush=True)
+    prompts = [p for p, _ in ctx["batch2"]]
+    kernels.reset_launch_counts()          # the offload path starts here
+    # (a) -- the experts into pinned host memory once; every store adopts
+    t0 = time.perf_counter()
+    host = tree_map_with_path(
+        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
+        if is_expert_leaf(p) else t, params)
+    print(f"offload: {cfg.n_layers}-layer experts pinned on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dcfg = default_dali_config(cfg, cache_ratio=0.25)
+    want = [out for _, out in ctx["batch2"]]
+    for mode in MODES:
+        server, done, wall = serve_offloaded(
+            torch, cfg, host, prompts, mode, dcfg, 2, 32, ctx["res_vecs"])
+        got = {r.rid: r.output for r in done}
+        same = [got.get(i) for i in range(len(want))] == want
+        ok = ok and same
+        offload_line(f"8 layers {mode} fetch batch=2 (tokens "
+                     f"{'identical to' if same else 'DIFFER from'} the "
+                     "full-resident serve)", server, done, wall, name)
+        if mode == "pipelined":
+            lay = server.store.memory_layout()
+            print(f"offload 8 layers: pool {lay['pool_bytes'] / 1e9:.2f} GB "
+                  f"of {lay['full_resident_bytes'] / 1e9:.2f} GB experts "
+                  f"({server.store.n_slots} of {cfg.moe.n_routed} slots)",
+                  flush=True)
+        del server
+        free(torch)
+    # where the time goes in an offloaded serve: batch 2, pipelined
+    spec = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg, batch_size=2,
+                     max_len=256, eos_id=-1,
+                     offload=OffloadSpec(mode="pipelined"))
+    server = spec.resolve(host).server(res_vecs=ctx["res_vecs"])
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+    profile_window(torch, server, name,
+                   label="8 layers pipelined fetch batch=2 serve")
+    del server
+    free(torch)
+    rng = np.random.default_rng(5)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    b8 = [corpus.sample(rng, int(rng.integers(24, 201))) for _ in range(8)]
+    server, done, wall = serve_offloaded(torch, cfg, host, b8, "pipelined",
+                                         dcfg, 8, 16, ctx["res_vecs"])
+    offload_line("8 layers pipelined fetch batch=8 (reading only)", server,
+                 done, wall, name)
+    del server
+    free(torch)
+
+    pinned = weakref.ref(host["scan"][0]["mlp"]["gate"])
+    del host, params
+    free(torch)
+    avail, waited = settled_mem_available(torch)
+    print(f"offload: 8-layer host store released: {pinned() is None}; "
+          f"MemAvailable {avail / 2**30:.1f} GiB after {waited:.1f} s",
+          flush=True)
+
+    # (b) -- full depth, as deep as the host can pin
+    full = get_config("mixtral-8x7b")
+    m = full.moe
+    layer_bytes = m.n_routed * 3 * full.d_model * m.d_expert * 2
+    depth = min(full.n_layers, int((avail - HOST_RESERVE) // layer_bytes))
+    print(f"offload: MemAvailable {avail / 2**30:.1f} GiB, "
+          f"{layer_bytes / 1e9:.2f} GB of experts per layer -> depth "
+          f"{depth} of {full.n_layers}", flush=True)
+    t0 = time.perf_counter()
+    cfgL = full.replace(n_layers=depth)
+    hp = init_model(cfgL, seed=0, device="cuda", experts="host")
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(hp))
+    print(f"offload: {depth}-layer Mixtral-8x7B, random weights from seed 0, "
+          f"{weight_bytes / 1e9:.2f} GB (experts on the host, pinned), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the pinned store's copy rate to the card: one layer's experts
+    src = hp["scan"][0]["mlp"]
+    dst = {k: torch.empty(src[k].shape[1:], dtype=src[k].dtype,
+                          device="cuda") for k in ("gate", "up", "down")}
+    rates = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for k in dst:
+            dst[k].copy_(src[k][0], non_blocking=True)
+        b.record()
+        b.synchronize()
+        rates.append(layer_bytes / (a.elapsed_time(b) / 1e3) / 1e9)
+    del dst
+    print(f"offload: H2D from the pinned store {max(rates):.2f} GB/s "
+          f"(best of 3 copies of {layer_bytes / 1e9:.2f} GB: "
+          f"{', '.join(f'{r:.2f}' for r in rates)})", flush=True)
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(7)
+    corpus = MarkovCorpus(vocab=cfgL.vocab, seed=0)
+    reqs = [corpus.sample(rng, int(rng.integers(24, 201))) for _ in range(4)]
+    outs = []
+    for ratio in (0.25, 0.125):
+        server, done, wall = serve_offloaded(
+            torch, cfgL, hp, reqs, "pipelined",
+            default_dali_config(cfgL, cache_ratio=ratio), 2, 8)
+        adopted = (server.store.host["gate"].data_ptr()
+                   == hp["scan"][0]["mlp"]["gate"].data_ptr())
+        ok = ok and adopted and len(done) == 4
+        lay = server.store.memory_layout()
+        print(f"offload {depth} layers cache_ratio={ratio}: pool "
+              f"{lay['pool_bytes'] / 1e9:.2f} GB ({server.store.n_slots} of "
+              f"{m.n_routed} slots per layer), host store adopted="
+              f"{adopted}", flush=True)
+        offload_line(f"{depth} layers pipelined fetch cache_ratio={ratio} "
+                     "batch=2", server, done, wall, name)
+        outs.append({r.rid: r.output for r in done})
+        del server
+        free(torch)
+    peak = torch.cuda.max_memory_allocated()
+    same = outs[0] == outs[1]
+    fits = peak < weight_bytes
+    ok = ok and same and fits
+    print(f"offload {depth} layers: tokens identical across cache ratios: "
+          f"{same}; peak device memory {peak / 1e9:.2f} GB < model weights "
+          f"{weight_bytes / 1e9:.2f} GB: {fits} | on {name}", flush=True)
+    del hp, src
+    free(torch)
+    avail, waited = settled_mem_available(torch)
+    print(f"offload: {depth}-layer store released; MemAvailable "
+          f"{avail / 2**30:.1f} GiB after {waited:.1f} s", flush=True)
+
+    # host tier: an admission's first-step logits against full-resident's,
+    # on the serve phase's 8-layer weights (drawn again from seed 0)
+    params = init_model(cfg, seed=0, device="cuda")
+    host = tree_map_with_path(
+        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
+        if is_expert_leaf(p) else t, params)
+    rs = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg, batch_size=1,
+                   max_len=64, offload=OffloadSpec(mode="blocking",
+                                                   fallback="host")
+                   ).resolve(host)
+    state = rs.init_state()
+    L = 40
+    toks = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    toks[0, :L] = torch.as_tensor(prompts[0][:L], device="cuda")
+    pos = torch.arange(64, dtype=torch.int32, device="cuda")
+    ref, _, _ = apply_model(params, toks, cfg, positions=pos,
+                            caches=init_caches(cfg, 1, 64), logit_index=L - 1)
+    t0 = time.perf_counter()
+    got, _, _ = apply_model(rs.params, toks, cfg, positions=pos,
+                            caches=init_caches(cfg, 1, 64), logit_index=L - 1,
+                            expert_slots=rs.store.build_view(state["offload"]),
+                            slot_fetch=rs.store, slot_phase="prefill")
+    torch.cuda.synchronize()
+    err = rel_err(got[..., :cfg.vocab], ref[..., :cfg.vocab])
+    rows = rs.store.stats()["fallback_rows"]
+    host_ok = err < BF16_TOL and rows > 0
+    ok = ok and host_ok
+    print(f"offload 8 layers host tier: first-step logits rel_err={err:.3e} "
+          f"against full-resident, fallback_rows={rows}, "
+          f"{time.perf_counter() - t0:.1f} s | "
+          f"{'pass' if host_ok else 'FAIL'}", flush=True)
+    del rs, state, host, params, ref, got
+    ctx.clear()
+    free(torch)
+    print(f"offload: host tier done; MemAvailable "
+          f"{mem_available() / 2**30:.1f} GiB", flush=True)
+    counts = kernels.launch_counts()       # ... and ends here
+    print(f"offload: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok, counts
 
 
 def main():
@@ -555,29 +872,43 @@ def main():
     reference_ok = reference_phase(torch)
 
     # -- phase 5: serve -----------------------------------------------------
-    serve_ok, counts = serve_phase(torch, kernels, name)
+    serve_ok, counts, ctx = serve_phase(torch, kernels, name)
     print(f"serve: kernel launches {json.dumps(counts)}", flush=True)
     launched_ok = all(counts[k] > 0 for k in (
         "gating", "expert_ffn_ragged", "expert_ffn_grouped",
         "flash_attention"))
 
+    # -- phase 6: physical offload -------------------------------------------
+    offload_ok, off_counts = offload_phase(torch, kernels, name, ctx)
+    print(f"offload: kernel launches {json.dumps(off_counts)}", flush=True)
+    launched_ok = launched_ok and all(off_counts[k] > 0 for k in (
+        "gating", "expert_ffn_grouped", "flash_attention"))
+
     out = []
     for r in rows:
+        # a row at the offload path's shapes counts that path's launches
+        on_offload = r["shape"].startswith(("pool", "decode miss"))
         out.append({"name": f"{r['name']} [{r['shape']}]", "route": "cuda",
                     "source": SOURCE[r["name"]],
                     "replaces": REPLACES[r["name"]],
-                    "launches": counts[r["name"]],
+                    "launches": (off_counts if on_offload
+                                 else counts)[r["name"]],
+                    "launches_serve": counts[r["name"]],
+                    "launches_offload": off_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
-                    "library_device_ms": r["library_device_ms"]})
+                    "library_device_ms": r["library_device_ms"],
+                    **{k: r[k] for k in ("floor_device_ms", "floor_ms")
+                       if k in r}})
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     failed = [p for p, ok in (("kernels", kernels_ok),
                               ("reference", reference_ok),
                               ("serve", serve_ok),
+                              ("offload", offload_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

@@ -11,7 +11,9 @@ reproduce).
 ``save_npz`` / ``load_npz`` store such a tree in one ``.npz`` file (keys
 are ``/``-joined paths, tuple positions written ``#i``), which is how
 ``python -m repro_torch.launch.serve --weights`` serves weights made by
-the JAX package.
+the JAX package.  With ``experts="host"`` both put the routed expert stacks
+in host memory (page-locked when ``device`` is a card) instead of on
+``device``, for a physical-offload store.
 """
 from __future__ import annotations
 
@@ -19,24 +21,37 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.models.model import experts_on_host, host_empty
+from repro_torch.models.moe import is_expert_leaf
+from repro_torch.tree import tree_map_with_path
 
 _BF16 = "::bfloat16"
 
 
-def _leaf_to_torch(a, device):
+def _leaf_to_cpu(a):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":            # ml_dtypes' bfloat16
         u = np.ascontiguousarray(a).view(np.int16)
-        return torch.from_numpy(u.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+        return torch.from_numpy(u.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
-def to_torch(tree, device="cuda"):
+def _place(path, t, device, host: bool):
+    """A CPU tensor onto ``device``, or into host memory for an expert
+    stack when ``host``."""
+    if host and is_expert_leaf(path):
+        return host_empty(t.shape, t.dtype, device).copy_(t)
+    return t.to(device)
+
+
+def to_torch(tree, device="cuda", experts: str = "device"):
     """numpy pytree (dict / tuple / list of arrays) -> the same nesting of
-    tensors on ``device``."""
+    tensors on ``device`` (expert stacks on the host with
+    ``experts="host"``)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _leaf_to_torch(a, dev), tree)
+    host = experts_on_host(experts)
+    return tree_map_with_path(
+        lambda path, a: _place(path, _leaf_to_cpu(a), dev, host), tree)
 
 
 def flatten(tree, prefix: str = ""):
@@ -88,16 +103,19 @@ def save_npz(path, tree):
     np.savez(path, **arrays)
 
 
-def load_npz(path, device="cuda"):
-    """Read a tree written by :func:`save_npz` as tensors on ``device``."""
+def load_npz(path, device="cuda", experts: str = "device"):
+    """Read a tree written by :func:`save_npz` as tensors on ``device``
+    (expert stacks on the host with ``experts="host"``)."""
     dev = resolve_device(device)
+    host = experts_on_host(experts)
     flat = {}
     with np.load(path) as z:
         for k in z.files:
             a = z[k]
             if k.endswith(_BF16):
                 flat[k[:-len(_BF16)]] = torch.from_numpy(
-                    a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+                    a.view(np.int16).copy()).view(torch.bfloat16)
             else:
-                flat[k] = torch.from_numpy(a).to(dev)
-    return unflatten(flat)
+                flat[k] = torch.from_numpy(a)
+    return tree_map_with_path(lambda p, t: _place(p, t, dev, host),
+                              unflatten(flat))

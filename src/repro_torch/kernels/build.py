@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gating.cu", "expert_ffn.cu", "flash_attention.cu")
+SOURCES = ("gating.cu", "expert_ffn.cu", "flash_attention.cu", "noop.cu")
 HEADERS = ("hopper.cuh",)    # included by the sources: part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +45,8 @@ _SIGNATURES = {
     # q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _P),
+    # T, stream (K1's launch shape, no work)
+    "noop_launch": (_I, _P),
 }
 
 

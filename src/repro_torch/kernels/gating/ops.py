@@ -70,3 +70,11 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
         "gating")
     kernels.LAUNCHES["gating"] += 1
     return gates, idx, probs
+
+
+def launch_floor(T: int, device="cuda"):
+    """Launch the no-op kernel of ``csrc/noop.cu`` with K1's launch shape
+    for ``T`` rows: what any kernel of that shape costs the card (a
+    measurement probe, not on the serving path)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(library().noop_launch(T, stream), "noop")

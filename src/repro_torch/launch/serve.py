@@ -14,6 +14,18 @@ variant at ``--layers`` layers; ``--scale full`` serves the published
 widths at ``--layers`` layers.  It runs on ``cuda`` unless ``--device
 cpu`` is given; the CUDA kernels take bfloat16, so ``--dtype`` defaults to
 it.  There is no training step here: training is ported later.
+
+``--offload`` picks how the policy's decisions reach the card: "modeled"
+(every expert resident, decisions feed telemetry only) or "blocking",
+"overlap", "pipelined" (pinned host store + device slot pool, see
+serving/expert_store.py; the expert stacks are then created or loaded
+straight into host memory, so the residual vectors, whose calibration
+trace needs them on the card, stay zero).  ``--check-exact`` re-serves the same
+requests full-resident ("modeled") and exits non-zero unless every
+request's tokens are identical:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --dtype float32 --offload pipelined --check-exact
 """
 from __future__ import annotations
 
@@ -41,7 +53,8 @@ def main(argv=None):
                     choices=["bfloat16", "float32"])
     ap.add_argument("--server", default="continuous")
     ap.add_argument("--policy", default="dali", help="dali | none")
-    ap.add_argument("--offload", default="modeled")
+    ap.add_argument("--offload", default="modeled",
+                    choices=["modeled", "blocking", "overlap", "pipelined"])
     ap.add_argument("--weights", default=None,
                     help=".npz of parameters carried from the JAX package "
                          "(repro_torch.bridge.save_npz)")
@@ -51,6 +64,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--cache-ratio", type=float, default=0.5)
     ap.add_argument("--no-dali", action="store_true")
+    ap.add_argument("--check-exact", action="store_true",
+                    help="re-serve full-resident (modeled) and exit non-zero "
+                         "unless every request's tokens are identical")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -60,12 +76,20 @@ def main(argv=None):
         cfg = make_smoke(cfg)
     cfg = cfg.replace(n_layers=args.layers, dtype=args.dtype,
                       param_dtype=args.dtype)
+    if args.check_exact and args.offload == "modeled":
+        raise SystemExit("--check-exact needs a physical --offload (it "
+                         "compares the run against the full-resident one)")
     corpus = MarkovCorpus(vocab=cfg.vocab, seed=args.seed)
+    # a physical store reads the experts from the host: draw them there,
+    # unless the full-resident reference run needs them on the device
+    experts = ("host" if args.offload != "modeled" and not args.check_exact
+               else "device")
     if args.weights:
-        params = load_npz(args.weights, device=args.device)
+        params = load_npz(args.weights, device=args.device, experts=experts)
         print(f"== serving {cfg.name} with weights from {args.weights}")
     else:
-        params = init_model(cfg, seed=args.seed, device=args.device)
+        params = init_model(cfg, seed=args.seed, device=args.device,
+                            experts=experts)
         print(f"== serving {cfg.name} ({cfg.n_layers} layers, "
               f"d_model {cfg.d_model}) with random weights, seed "
               f"{args.seed}")
@@ -73,7 +97,7 @@ def main(argv=None):
     policy = "none" if args.no_dali else args.policy
     dali_cfg = None
     res_vecs = None
-    if cfg.moe is not None and policy != "none":
+    if cfg.moe is not None and policy != "none" and experts == "device":
         print("== calibrating residual vectors (paper Eq. 11)")
         rng = np.random.default_rng(args.seed + 1)
         calib = np.stack([corpus.sample(rng, args.prompt_len)
@@ -81,28 +105,53 @@ def main(argv=None):
         tr = capture_decode_trace(params, cfg, calib, n_decode=16,
                                   device=args.device)
         res_vecs = np.stack(calibrate_residuals([tr]))
+    if cfg.moe is not None and policy != "none":
         dali_cfg = default_dali_config(cfg, cache_ratio=args.cache_ratio)
 
-    spec = ServeSpec(cfg=cfg, server=args.server, policy=policy,
-                     dali_cfg=dali_cfg, batch_size=args.batch,
-                     max_len=args.prompt_len + args.max_new + 2,
-                     offload=OffloadSpec(mode=args.offload),
-                     device=args.device)
-    server = spec.resolve(params).server(res_vecs=res_vecs)
-    rng = np.random.default_rng(args.seed + 2)
-    for i in range(args.requests):
-        server.submit(Request(rid=i,
-                              prompt=corpus.sample(rng, args.prompt_len),
-                              max_new_tokens=args.max_new))
-    done = server.run()
+    def serve_once(offload):
+        spec = ServeSpec(cfg=cfg, server=args.server, policy=policy,
+                         dali_cfg=dali_cfg, batch_size=args.batch,
+                         max_len=args.prompt_len + args.max_new + 2,
+                         offload=OffloadSpec(mode=offload),
+                         device=args.device)
+        server = spec.resolve(params).server(res_vecs=res_vecs)
+        rng = np.random.default_rng(args.seed + 2)
+        for i in range(args.requests):
+            server.submit(Request(rid=i,
+                                  prompt=corpus.sample(rng, args.prompt_len),
+                                  max_new_tokens=args.max_new))
+        return server, server.run()
+
+    server, done = serve_once(args.offload)
     lat = [r.latency for r in done]
     ttft = [r.ttft for r in done if r.first_token_at]
     print(f"== served {len(done)} requests via {args.server} "
           f"(policy={policy}, offload={args.offload}, device="
           f"{server.device}) | {server.metrics.summary()}")
+    if server.store is not None:
+        st = server.store.stats()
+        print(f"   physical offload: streamed {st['h2d_rows']} experts "
+              f"({st['h2d_bytes'] / 1e6:.1f} MB) | miss fallback "
+              f"{st['fallback_rows']} (token,k) rows | prefill waves "
+              f"{st['prefill_waves']} | miss reads "
+              f"{st['miss_reads'] / max(server.metrics.steps, 1):.1f} per "
+              "decode step")
     print(f"   latency p50={np.percentile(lat, 50):.2f}s "
           f"p95={np.percentile(lat, 95):.2f}s"
           + (f" | ttft p50={np.percentile(ttft, 50):.2f}s" if ttft else ""))
+
+    if args.check_exact:
+        print("== --check-exact: re-serving the same requests "
+              "full-resident (modeled)")
+        _, ref = serve_once("modeled")
+        by_rid = {r.rid: r.output for r in ref}
+        bad = [r.rid for r in done if r.output != by_rid.get(r.rid)]
+        if bad:
+            print(f"   MISMATCH: requests {bad} diverged from the "
+                  "full-resident run")
+            raise SystemExit(1)
+        print(f"   exact-output parity verified: all {len(done)} requests "
+              "identical to the full-resident run")
     return server, done
 
 

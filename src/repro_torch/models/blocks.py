@@ -43,7 +43,9 @@ def init_block(gen, cfg: ModelConfig, kinds, device):
 
 def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                 cache=None, causal: bool = True,
-                moe_capacity: Optional[int] = None):
+                moe_capacity: Optional[int] = None,
+                slots=None, slot_fetch=None, slot_live=None,
+                slot_phase: str = "decode"):
     _check_kinds(cfg, kinds)
     mixer_kind, mlp_kind = kinds
     h = apply_norm(params["norm1"], x, cfg)
@@ -54,7 +56,9 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
     h = apply_norm(params["norm2"], x, cfg)
     moe_info = None
     if mlp_kind == "moe":
-        y, moe_info = apply_moe(params["mlp"], h, cfg, capacity=moe_capacity)
+        y, moe_info = apply_moe(params["mlp"], h, cfg, capacity=moe_capacity,
+                                slots=slots, slot_fetch=slot_fetch,
+                                slot_live=slot_live, slot_phase=slot_phase)
     else:
         y = apply_mlp(params["mlp"], h, cfg)
     return x + y, new_cache, moe_info

@@ -14,52 +14,93 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.device import pinned_empty, resolve_device
+from repro_torch.tree import tree_map, tree_map_with_path
 
 from .blocks import apply_block, init_block, init_block_cache
 from .config import ModelConfig, scan_pattern
 from .layers import apply_norm, embed, init_embedding, init_norm, unembed
+from .moe import is_expert_leaf
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
-def _init_stack(gen, cfg: ModelConfig, pattern, n_super: int, device):
+def experts_on_host(experts: str) -> bool:
+    """Whether an ``experts`` placement ("device" | "host") keeps the routed
+    expert stacks in host memory."""
+    if experts not in ("device", "host"):
+        raise ValueError(f"experts must be 'device' or 'host', got "
+                         f"{experts!r}")
+    return experts == "host"
+
+
+def host_empty(shape, dtype, device):
+    """Host memory for expert stacks kept off a ``device``: page-locked when
+    the device is a card (copies from it are then asynchronous DMA)."""
+    if torch.device(device).type == "cuda":
+        return pinned_empty(shape, dtype)
+    return torch.empty(shape, dtype=dtype)
+
+
+def _init_stack(gen, cfg: ModelConfig, pattern, n_super: int, device,
+                host_experts: bool):
     """Stacked params, leaves (n_super, ...), filled one block at a time so
-    the peak is one block above the model's own size."""
+    the peak is one block above the model's own size (with
+    ``host_experts``, one block above the model without its experts)."""
+
+    def empty(path, a):
+        if host_experts and is_expert_leaf(path):
+            return host_empty((n_super,) + a.shape, a.dtype, device)
+        return a.new_empty((n_super,) + a.shape)
+
     out = []
     for kinds in pattern:
-        first = init_block(gen, cfg, kinds, device)
-        stacked = tree_map(lambda a: a.new_empty((n_super,) + a.shape), first)
-        tree_map(lambda s, a: s[0].copy_(a), stacked, first)
-        del first
-        for i in range(1, n_super):
+        stacked = None
+        for i in range(n_super):
             blk = init_block(gen, cfg, kinds, device)
+            if stacked is None:
+                stacked = tree_map_with_path(empty, blk)
             tree_map(lambda s, a: s[i].copy_(a), stacked, blk)
             del blk
         out.append(stacked)
     return tuple(out)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+               experts: str = "device"):
     """Random parameters from ``seed`` (a ``torch.Generator`` on the target
     device).  The draws differ from ``jax.random``; tests that compare with
-    the reference carry its parameters over with ``repro_torch.bridge``."""
+    the reference carry its parameters over with ``repro_torch.bridge``.
+
+    ``experts="host"`` keeps the routed expert stacks in host memory (for a
+    physical-offload store): each layer's experts are drawn on ``device``,
+    as for ``"device"`` (so the weights are the same), and moved to the host
+    before the next layer is drawn, so a model whose experts do not fit on
+    the card is never held there whole."""
     dev = resolve_device(device)
     if cfg.encoder is not None:
         raise NotImplementedError("encoder-decoder models are ported later "
                                   "(ROADMAP.md module 14)")
+    host = experts_on_host(experts)
+
+    def block(kinds):
+        blk = init_block(gen, cfg, kinds, dev)
+        if not host:
+            return blk
+        return tree_map_with_path(
+            lambda path, a: host_empty(a.shape, a.dtype, dev).copy_(a)
+            if is_expert_leaf(path) else a, blk)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     return {
         "embed": init_embedding(gen, cfg, dev),
         "final_norm": init_norm(cfg, dev),
-        "prefix": tuple(init_block(gen, cfg, kinds, dev)
-                        for kinds in prefix_pat),
-        "scan": _init_stack(gen, cfg, period_pat, n_super, dev),
+        "prefix": tuple(block(kinds) for kinds in prefix_pat),
+        "scan": _init_stack(gen, cfg, period_pat, n_super, dev, host),
     }
 
 
@@ -94,7 +135,8 @@ def _trim_info(info, trace: bool):
 def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
                 caches=None, moe_capacity: Optional[int] = None,
                 trace: bool = False, last_logit_only: bool = False,
-                logit_index: Optional[int] = None):
+                logit_index: Optional[int] = None, expert_slots=None,
+                slot_fetch=None, slot_live=None, slot_phase: str = "decode"):
     """tokens (B, S) int.  Returns (logits, caches, infos): ``caches`` is
     the given cache tree, updated in place (None without caches); ``infos``
     is one entry per prefix layer plus one tuple over the period's
@@ -102,19 +144,29 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
 
     ``positions`` is (S,) shared by the batch or (B, S) per slot.
     ``logit_index`` unembeds only that position: the admission prefill of a
-    right-padded prompt samples from position ``length - 1``."""
+    right-padded prompt samples from position ``length - 1``.
+
+    ``expert_slots`` (an ``ExpertStore.build_view`` tree: per MoE layer its
+    slot-pool slices, a scan position one entry per super-block) plus
+    ``slot_fetch`` (the store) switch MoE layers to the physical-offload
+    slot path; ``slot_live`` (B,) bool marks live batch slots (decode) and
+    ``slot_phase`` ("decode" | "prefill") picks the slot regime."""
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed(params["embed"], tokens, cfg)
 
+    slot_kw = dict(slot_fetch=slot_fetch, slot_live=slot_live,
+                   slot_phase=slot_phase)
     infos = []
     for i, kinds in enumerate(prefix_pat):
         c = caches["prefix"][i] if caches is not None else None
+        sl = expert_slots["prefix"][i] if expert_slots is not None else None
         x, _, info = apply_block(params["prefix"][i], x, cfg, kinds,
                                  positions=positions, cache=c,
-                                 moe_capacity=moe_capacity)
+                                 moe_capacity=moe_capacity, slots=sl,
+                                 **slot_kw)
         infos.append(_trim_info(info, trace))
 
     per_pos = [[] for _ in period_pat]
@@ -123,9 +175,13 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
             p_slice = tree_map(lambda a: a[s], params["scan"][p])
             c = (tree_map(lambda a: a[s], caches["scan"][p])
                  if caches is not None else None)
+            sl = (expert_slots["scan"][p][s]
+                  if expert_slots is not None
+                  and expert_slots["scan"][p] is not None else None)
             x, _, info = apply_block(p_slice, x, cfg, kinds,
                                      positions=positions, cache=c,
-                                     moe_capacity=moe_capacity)
+                                     moe_capacity=moe_capacity, slots=sl,
+                                     **slot_kw)
             per_pos[p].append(_trim_info(info, trace))
     infos.append(tuple(
         None if rows[0] is None

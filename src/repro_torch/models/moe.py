@@ -1,6 +1,5 @@
-"""Mixture-of-Experts layer, full-resident execution (port of
-``repro/models/moe.py`` without the slot-pool, expert-parallel and
-chunked paths).
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py`` without the
+expert-parallel and chunked paths).
 
 Routing runs the fused router kernel K1; the expert FFN runs kernel K2 on
 one of two paths, chosen statically from shapes as in the reference
@@ -14,6 +13,15 @@ one of two paths, chosen statically from shapes as in the reference
   activated (token, k) slot and ``expert_ids = idx.reshape(-1)``: each group
   reads its expert's weights by index, so the (T*K, d, f) gathered weight
   copies of the reference are never built.
+
+With a physical-offload expert store (``serving/expert_store.py``) the
+weights come from the device slot pool instead: decode steps take the
+grouped path with ``expert_ids`` = pool slots (``slot_expert_ffn``), and
+prefill sweeps run K2 grouped over the (E, C, d) buckets with
+``expert_ids`` = pool rows or the rows of a wave of streamed misses
+(``slot_expert_sweep``).  Both keep each row's arithmetic the
+full-resident one, so the fetch tier is bit-equal to full-resident
+execution.
 
 The layer returns the same routing observables (``info``) as the
 reference: workloads, top-k choices, gates, router probabilities, gate
@@ -31,6 +39,17 @@ from repro_torch.kernels.gating.ops import gating
 
 from .config import ModelConfig, MoEConfig
 from .layers import dense_init
+
+# the routed expert stacks of an MoE layer's params: what a physical-offload
+# store keeps on the host and ``strip_expert_params`` removes
+EXPERT_KEYS = ("gate", "up", "down")
+
+
+def is_expert_leaf(path) -> bool:
+    """Whether a params key path (``.../mlp/gate`` etc.) is a routed expert
+    stack."""
+    return len(path) >= 2 and path[-2] == "mlp" and path[-1] in EXPERT_KEYS
+
 
 # inputs above this many tokens are chunked by the reference
 # (``moe.py:547``); the port does not chunk yet
@@ -110,6 +129,95 @@ def grouped_expert_ffn(params, xf, idx, gates, cfg: ModelConfig):
     return _combine_topk(ys[:, 0], gates)
 
 
+def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
+                    live=None):
+    """Physical-offload decode path: one K2 row group per (token, k) slot,
+    weights from the layer's device slot pool (``slots``: one entry of
+    ``ExpertStore.build_view``).  Pooled experts read their slot rows;
+    misses take the store's tier:
+
+      * "fetch" — the missing experts are copied from the pinned host
+        store into the miss-staging buffer and a second K2 launch runs the
+        miss rows over it, so every row is computed as full-resident
+        decode computes it (bit-equal);
+      * "host" — the missing rows' FFN runs on the CPU in float32 and only
+        the (d,) rows come back.
+
+    ``live`` (T,) bool marks live batch slots: a dead row never counts as a
+    miss (a retired slot's garbage token must not fetch); its output comes
+    from whatever slot row the clipped index lands on and is discarded.
+    The host learns the misses from one small device-to-host read."""
+    T, d = xf.shape
+    K = idx.shape[1]
+    lid = slots["lid"]
+    slot_fetch.wait_layer(lid)
+    flat_e = idx.reshape(-1).to(torch.int32)
+    slot = slots["slot_of"][flat_e.long()]                 # (T*K,) int32
+    hit = slot >= 0
+    if live is not None:
+        hit = hit | ~live.repeat_interleave(K)
+    got = slot_fetch.read_misses(torch.stack([flat_e,
+                                              hit.to(torch.int32)]))
+    e_np, hit_np = got[0], got[1].astype(bool)
+    xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()
+    ys = expert_ffn(xs, slots["gate"], slots["up"], slots["down"],
+                    counts=hit.to(torch.int32),
+                    expert_ids=slot.clamp(min=0).contiguous(),
+                    act=cfg.act)[:, 0]
+    if not hit_np.all():
+        miss = ~hit
+        if slot_fetch.fallback == "host":
+            ym = slot_fetch.host_ffn(lid, xf.cpu(), e_np, hit_np)
+        else:
+            wg, wu, wd, srow = slot_fetch.fetch_weights(lid, e_np, hit_np)
+            ym = expert_ffn(xs, wg, wu, wd, counts=miss.to(torch.int32),
+                            expert_ids=torch.from_numpy(srow).to(xf.device),
+                            act=cfg.act)[:, 0]
+        ys = torch.where(miss[:, None], ym.to(xf.device), ys)
+    return _combine_topk(ys, gates)
+
+
+def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
+    """Physical-offload capacity sweep: (E, C, d) buckets -> (E, C, d).
+
+    One K2 grouped launch runs the pooled experts' buckets with
+    ``expert_ids`` = their pool slots; the activated-but-unpooled experts'
+    buckets ("fetch") run in waves of at most ``prefill_rows`` experts, each
+    wave copied from the pinned host store into the staging rows its launch
+    reads.  K2 skips empty groups, so experts without tokens need no
+    weights, and every bucket is computed as the full-resident sweep
+    computes it (bit-equal).  Returns ``(ye, need)``: ``need`` (E,) bool
+    marks the experts the "host" tier still has to run (their buckets are
+    zero in ``ye``); all False for "fetch"."""
+    lid = slots["lid"]
+    slot_fetch.wait_layer(lid)
+    E = xe.shape[0]
+    slot_of = slots["slot_of"]
+    need = ((slot_fetch.read_misses(counts, prefill=True) > 0)
+            & (slots["slot_of_np"] < 0))
+    ye = expert_ffn(xe, slots["gate"], slots["up"], slots["down"],
+                    counts=torch.where(slot_of >= 0, counts, 0),
+                    expert_ids=slot_of.clamp(min=0).contiguous(),
+                    act=cfg.act)
+    if slot_fetch.fallback == "host":
+        return ye, need
+    ids = np.nonzero(need)[0]
+    P = slot_fetch.prefill_rows
+    for w in range(0, len(ids), P):
+        wave = ids[w:w + P]
+        wg, wu, wd = slot_fetch.prefill_fetch(lid, wave)
+        rows = np.zeros(E, np.int32)
+        rows[wave] = np.arange(len(wave), dtype=np.int32)
+        sel = np.zeros(E, bool)
+        sel[wave] = True
+        sel = torch.from_numpy(sel).to(xe.device)
+        yw = expert_ffn(xe, wg, wu, wd, counts=torch.where(sel, counts, 0),
+                        expert_ids=torch.from_numpy(rows).to(xe.device),
+                        act=cfg.act)
+        ye = torch.where(sel[:, None, None], yw, ye)
+    return ye, np.zeros(E, bool)
+
+
 def expert_ffn_dense(params, xe, cfg: ModelConfig, counts=None):
     """Capacity-bucket sweep (E, C, d) -> (E, C, d) through K2 (ragged with
     ``counts``; rows at or beyond counts[e] are zero)."""
@@ -160,9 +268,18 @@ def local_dispatch(xf, idx, E, K, C):
 
 def apply_moe(params, x, cfg: ModelConfig, *,
               capacity: Optional[int] = None,
-              force_path: Optional[str] = None):
+              force_path: Optional[str] = None,
+              slots=None, slot_fetch=None, slot_live=None,
+              slot_phase: str = "decode"):
     """Returns (y, info) with DALI's routing observables (reference
-    ``apply_moe`` without slots, EP, chunking or a validity mask)."""
+    ``apply_moe`` without EP, chunking or a validity mask).
+
+    ``slots`` (one layer's ``ExpertStore.build_view`` entry) + ``slot_fetch``
+    (the store) select the physical-offload slot-pool path; ``slot_live``
+    (T,) bool keeps dead batch slots from counting as misses.
+    ``slot_phase`` "decode" always takes the grouped path (a step's
+    activated rows are few); "prefill" keeps ``use_sparse_path``'s rule, so
+    the offloaded sweep has the full-resident path's shapes."""
     if force_path not in (None, "dense", "sparse"):
         raise ValueError(f"force_path must be None|'dense'|'sparse', "
                          f"got {force_path!r}")
@@ -178,18 +295,38 @@ def apply_moe(params, x, cfg: ModelConfig, *,
 
     gates, idx, probs, logits = route(params, xf, m)
     sparse = (force_path == "sparse" if force_path is not None
-              else use_sparse_path(m, T, capacity))
+              else ((slots is not None and slot_phase == "decode")
+                    or use_sparse_path(m, T, capacity)))
     if sparse:
-        y = grouped_expert_ffn(params, xf, idx, gates, cfg)
+        if slots is not None:
+            y = slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg,
+                                live=slot_live)
+        else:
+            y = grouped_expert_ffn(params, xf, idx, gates, cfg)
         counts = _workload_counts(idx.reshape(-1), E)
         dropped = torch.zeros((), dtype=torch.int32, device=x.device)
     else:
         C = capacity if capacity is not None else expert_capacity(m, T)
         xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C)
-        ye = expert_ffn_dense(params, xe, cfg, counts=counts)    # (E, C, d)
+        host_need = None
+        if slots is not None:
+            ye, host_need = slot_expert_sweep(slots, slot_fetch, xe, counts,
+                                              cfg)
+        else:
+            ye = expert_ffn_dense(params, xe, cfg, counts=counts)  # (E,C,d)
         keep_s = (rank < C) & (se < E)
         contrib = ye[se.clamp(0, E - 1), rank.clamp(0, C - 1)]
         contrib = torch.where(keep_s[:, None], contrib, 0)[inv]
+        if host_need is not None and host_need.any():
+            # the CPU tier at (token, k)-row granularity: host rows replace
+            # their (zero) device contributions under the same drops
+            e_np = slot_fetch.read_misses(idx.reshape(-1), prefill=True)
+            host_hit = ~host_need[e_np]
+            ys_host = slot_fetch.prefill_host(slots["lid"], xf.cpu(), e_np,
+                                              host_hit).to(x.device)
+            host_miss = ~torch.from_numpy(host_hit).to(x.device)
+            contrib = torch.where((host_miss & keep_s[inv])[:, None],
+                                  ys_host.to(contrib.dtype), contrib)
         y = (contrib.reshape(T, K, d)
              * gates.to(contrib.dtype)[..., None]).sum(1)
         dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)

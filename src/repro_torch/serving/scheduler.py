@@ -9,7 +9,14 @@ every slot sits at its own position, and (3) retires slots whose request
 hit EOS, its token budget or the cache horizon.  The offload policy runs
 after every decode step on the device; its telemetry accumulates there
 and is drained once per flush interval (``TelemetryAggregator``), so the
-decode loop's only host read per step is the batch's new tokens.
+decode loop's only host read per step is the batch's new tokens (and,
+with physical offload, the next pool target and the per-layer miss reads).
+
+With a physical-offload store the loop drives its hooks where the
+reference does: ``prefill_barrier`` before each admission prefill, then
+per step ``pre_step``, the decode dispatch, ``post_dispatch``, the token
+sync and ``next_target``; the store's counters fold into
+``ServeMetrics.offload_tel`` once per step.
 
 The wave server of the reference is ported with the other policies
 (ROADMAP.md, "other policies and the wave server").
@@ -72,7 +79,19 @@ class ServeMetrics:
     steps: int = 0                      # decode steps
     occupancy_sum: int = 0              # live slots summed over steps
     requests: int = 0                   # finished requests
+    # physical-offload counters folded from ExpertStore.drain()
+    offload_tel: dict = field(default_factory=dict)
     dali: TelemetryAggregator = field(default_factory=TelemetryAggregator)
+
+    def fold_offload(self, deltas: dict):
+        for k, v in deltas.items():
+            self.offload_tel[k] = self.offload_tel.get(k, 0) + v
+
+    def fallback_rate(self) -> float:
+        """Miss (token, k) rows per finished request."""
+        if not self.requests:
+            return 0.0
+        return self.offload_tel.get("fallback_rows", 0) / self.requests
 
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / self.steps if self.steps else 0.0
@@ -84,6 +103,10 @@ class ServeMetrics:
              f"decode={dc:.1f} tok/s occ={self.mean_occupancy():.2f}")
         if self.dali.lookups:
             s += " | " + self.dali.summary()
+        if self.offload_tel:
+            ot = self.offload_tel
+            s += (f" | fb_rows/req={self.fallback_rate():.2f}"
+                  f" fetches={ot.get('fallback_fetches', 0)}")
         return s
 
 
@@ -135,6 +158,8 @@ class ContinuousBatchServer:
         self.max_len = spec.max_len
         self.eos = spec.eos_id
         self.policy = resolved.policy
+        self.offload = spec.offload.mode
+        self.store = resolved.store
         self.res_vecs = (None if res_vecs is None else torch.as_tensor(
             np.asarray(res_vecs, np.float32), device=self.device))
         self.min_bucket = spec.min_bucket
@@ -171,8 +196,15 @@ class ContinuousBatchServer:
         fresh = self._fresh_caches
         for c in list(fresh["prefix"]) + list(fresh["scan"]):
             c["pos"].fill_(-1)
+        off = None
+        if self.store is not None:
+            # overlap may hold a staged plan: commit it so the admission
+            # sweep reads a coherent pool
+            off = state["offload"] = self.store.prefill_barrier(
+                state["offload"])
         first_tok, fresh = self._prefill(
-            self.params, torch.as_tensor(toks, device=self.device), fresh, L)
+            self.params, torch.as_tensor(toks, device=self.device), fresh, L,
+            off)
         state = self._admit(state, fresh, first_tok, slot, L)
         tok = int(first_tok[0, 0])                   # waits for the device
         t1 = time.perf_counter()
@@ -192,6 +224,9 @@ class ContinuousBatchServer:
         finished: List[Request] = []
         state = self._resolved.init_state()
         slot_req: List[Optional[Request]] = [None] * B
+        # physical offload: the previous step's cache ∪ prefetch, pending
+        # lowering to a slot plan
+        pool_target = None
 
         while self.queue or any(slot_req):
             now = time.perf_counter()
@@ -220,9 +255,16 @@ class ContinuousBatchServer:
 
             # -- one decode step over the whole slot table -----------------
             t0 = time.perf_counter()
-            state, _, _ = self._decode(self.params, state, self.res_vecs)
-            toks = state["tokens"][:, 0].tolist()    # the step's one sync
+            if self.store is not None:
+                state["offload"] = self.store.pre_step(
+                    state["offload"], self.offload, pool_target)
+            state, _, tel = self._decode(self.params, state, self.res_vecs)
+            if self.store is not None:
+                self.store.post_dispatch(self.offload, pool_target)
+            toks = state["tokens"][:, 0].tolist()    # the step's token sync
             t1 = time.perf_counter()
+            if self.store is not None:
+                pool_target = self.store.next_target(state, tel)
 
             emitted = len(busy)
             for i in busy:
@@ -237,7 +279,11 @@ class ContinuousBatchServer:
             self.metrics.decode_s += t1 - t0
             self.metrics.steps += 1
             self.metrics.occupancy_sum += emitted
+            if self.store is not None:
+                self.metrics.fold_offload(self.store.drain())
             self.metrics.dali.observe(state.get("dali"), n_active=emitted)
         self.metrics.dali.end_epoch()
+        if self.store is not None:
+            self.metrics.fold_offload(self.store.drain())
         self.metrics.requests += len(finished)
         return finished

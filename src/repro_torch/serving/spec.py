@@ -1,16 +1,15 @@
 """Typed serving construction: one spec, one ``resolve()`` (port of
-``repro/serving/spec.py`` for the full-resident ``"modeled"`` mode).
+``repro/serving/spec.py``).
 
 ``ServeSpec`` says what to serve (config, server preset, policy, batch
 geometry, device); ``OffloadSpec`` says how expert weights reach the
 device.  ``ServeSpec.resolve(params)`` validates both once, resolves the
-policy and returns a ``ResolvedServe`` whose factories build the step
-functions, the serve state and the server.
-
-Only ``mode="modeled"`` is ported: every expert stays on the device and
-the policy's decisions feed telemetry only.  The physical modes
-(blocking, overlap, pipelined), faults and topologies come with physical
-offload (ROADMAP.md, "Physical offload").
+policy, builds the ``ExpertStore`` for the physical modes (blocking,
+overlap, pipelined), strips the routed expert stacks from the served
+params, and returns a ``ResolvedServe`` whose factories build the step
+functions, the serve state and the server.  The reference's fault
+injection, cost-model and topology options come with fault tolerance
+(ROADMAP.md queue item 3) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,27 +21,49 @@ from repro_torch.tree import tree_leaves
 
 OFFLOAD_MODES = ("modeled", "blocking", "overlap", "pipelined")
 
+# the offload <-> policy contract, in the reference's words
+OFFLOAD_POLICY_ERROR = (
+    "physical offload requires an MoE architecture and a scheduling "
+    "policy (policy != 'none'): slot plans are lowered from the policy's "
+    "decisions and its initial resident set seeds the slot pool")
+
+
+def require_offload_policy(policy, cfg):
+    """Raise the shared contract error unless ``policy`` schedules an MoE
+    architecture."""
+    if not (getattr(policy, "schedules", False) and cfg.moe is not None):
+        raise ValueError(OFFLOAD_POLICY_ERROR)
+
 
 @dataclasses.dataclass(frozen=True)
 class OffloadSpec:
     """How expert weights reach the device.
 
-    mode    — "modeled" (every expert resident; the policy feeds
-              telemetry only).  The reference's physical modes raise
-              ``NotImplementedError`` until they are ported.
+    mode          — "modeled" (every expert resident; the policy feeds
+                    telemetry only) | "blocking" | "overlap" | "pipelined"
+                    (pinned host store + device slot pool, see
+                    serving/expert_store.py)
+    fallback      — miss tier: "fetch" (bit-exact demand fetch) | "host"
+                    (CPU FFN); "little" comes with fault tolerance
+    prefill_rows  — experts per wave a prefill sweep streams (None = pool
+                    size)
+    strip_params  — remove the expert stacks from the served params (None =
+                    auto: stripped for physical modes)
+    faults / cost_model / topology — the reference's fault-injection
+                    options; ported with fault tolerance (ROADMAP.md queue
+                    item 3)
     """
     mode: str = "modeled"
+    fallback: str = "fetch"
+    prefill_rows: Optional[int] = None
+    strip_params: Optional[bool] = None
+    faults: Any = None
+    cost_model: Any = None
+    topology: Any = None
 
-    def resolve(self):
-        """Validate the mode; returns the expert store (None: modeled)."""
-        if self.mode not in OFFLOAD_MODES:
-            raise ValueError(f"offload must be one of "
-                             f"{'|'.join(OFFLOAD_MODES)}, got {self.mode!r}")
-        if self.mode != "modeled":
-            raise NotImplementedError(
-                f"offload mode {self.mode!r} is ported with physical offload "
-                "(ROADMAP.md, 'Physical offload')")
-        return None
+    @property
+    def physical(self) -> bool:
+        return self.mode != "modeled"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +86,9 @@ class ServeSpec:
     device: Any = "cuda"
 
     def resolve(self, params) -> "ResolvedServe":
-        """Validate + build the policy; check the params live on the
-        spec's device."""
+        """Validate + build: policy, store, (stripped) params, which must
+        then live on the spec's device (a store reads expert stacks from
+        the host or the device)."""
         from repro_torch.serving.steps import resolve_policy
         dev = resolve_device(self.device)
         if self.server != "continuous":
@@ -74,15 +96,50 @@ class ServeSpec:
                 f"server preset {self.server!r} is ported with the other "
                 "policies (ROADMAP.md, 'other policies and the wave "
                 "server'); the port serves 'continuous'")
-        store = self.offload.resolve()
+        off = self.offload
         policy = resolve_policy(self.policy, self.cfg, self.dali_cfg)
-        wrong = {str(t.device) for t in tree_leaves(params)
+        store = build_store(off.mode, params, self.cfg, policy,
+                            fallback=off.fallback, faults=off.faults,
+                            cost_model=off.cost_model,
+                            prefill_rows=off.prefill_rows,
+                            topology=off.topology, device=dev)
+        use_params = params
+        if store is not None and off.strip_params is not False:
+            from repro_torch.serving.expert_store import strip_expert_params
+            use_params = strip_expert_params(params, self.cfg)
+        wrong = {str(t.device) for t in tree_leaves(use_params)
                  if t.device.type != dev.type}
         if wrong:
             raise ValueError(f"params live on {sorted(wrong)} but the spec "
                              f"serves on {dev}")
         return ResolvedServe(spec=self, policy=policy, store=store,
-                             params=params, device=dev)
+                             params=use_params, device=dev)
+
+
+def build_store(offload: str, params, cfg, policy, fallback: str = "fetch",
+                faults=None, cost_model=None, prefill_rows=None,
+                topology=None, device=None):
+    """The ExpertStore of a physical offload mode (None for "modeled").
+    The pool is sized to the policy's largest effective resident set
+    (cache ∪ prefetch) plus one plan of slack, the per-step copy budget to
+    its churn — the reference's sizing."""
+    from repro_torch.serving.expert_store import FAULT_SEAM, ExpertStore
+    if offload not in OFFLOAD_MODES:
+        raise ValueError(f"offload must be one of "
+                         f"{'|'.join(OFFLOAD_MODES)}, got {offload!r}")
+    if any(x is not None for x in (faults, cost_model, topology)):
+        raise NotImplementedError(FAULT_SEAM)
+    if offload == "modeled":
+        return None
+    require_offload_policy(policy, cfg)
+    dcfg = policy.dcfg
+    moves = max(2, dcfg.prefetch_size + dcfg.u_size)
+    return ExpertStore(
+        params, cfg,
+        n_slots=min(cfg.moe.n_routed,
+                    dcfg.cache_size + dcfg.prefetch_size + moves),
+        max_moves=moves, fallback=fallback, mode=offload,
+        prefill_rows=prefill_rows, device=device)
 
 
 @dataclasses.dataclass
@@ -98,12 +155,14 @@ class ResolvedServe:
     def decode_step(self):
         from repro_torch.serving.steps import make_decode_step
         return make_decode_step(self.spec.cfg, policy=self.policy,
-                                moe_capacity=self.spec.moe_capacity)
+                                moe_capacity=self.spec.moe_capacity,
+                                offload=self.store)
 
     def admit_prefill(self):
         from repro_torch.serving.steps import make_admit_prefill
         return make_admit_prefill(self.spec.cfg,
-                                  moe_capacity=self.spec.moe_capacity)
+                                  moe_capacity=self.spec.moe_capacity,
+                                  offload=self.store)
 
     def init_state(self, seed: int = 0, batch: Optional[int] = None,
                    max_len: Optional[int] = None):
@@ -111,7 +170,8 @@ class ResolvedServe:
         s = self.spec
         return init_serve_state(s.cfg, batch or s.batch_size,
                                 max_len or s.max_len, policy=self.policy,
-                                seed=seed, device=self.device)
+                                seed=seed, device=self.device,
+                                offload=self.store)
 
     def server(self, res_vecs=None):
         """The server the spec names, built from this resolution."""

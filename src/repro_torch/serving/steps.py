@@ -11,6 +11,8 @@ Per-slot serve state (continuous batching)::
     "active": (B,)   bool   — live slots (admitted, not yet retired)
     "caches": model caches (see models/model.py)
     "dali":   policy state (when the policy schedules)
+    "offload": the device slot pool and slot table (physical offload, see
+              serving/expert_store.py)
   }
 
 Unlike the reference, whose steps are pure functions, the admission and
@@ -50,20 +52,29 @@ def resolve_policy(policy, cfg: ModelConfig,
 
 
 def make_admit_prefill(cfg: ModelConfig,
-                       moe_capacity: Optional[int] = None):
+                       moe_capacity: Optional[int] = None, offload=None):
     """Prefill for admission into a continuous batch.  The prompt arrives
     RIGHT-padded to a bucket length, so positions 0..length-1 are real and
     the first token is sampled from the logit at ``length - 1``.  Returns
-    prefill(params, tokens (1, Sb), caches, length: int) ->
-    (next_token (1, 1), caches), the caches written in place."""
+    prefill(params, tokens (1, Sb), caches, length: int, off=None) ->
+    (next_token (1, 1), caches), the caches written in place.
 
-    def prefill(params, tokens, caches, length: int):
+    ``offload`` (an ``ExpertStore``) runs the sweep through the slot pool
+    (call with ``off=state["offload"]``; params may be stripped of expert
+    stacks): right-pad tokens route and stream like real ones, as in the
+    full-resident admission."""
+
+    def prefill(params, tokens, caches, length: int, off=None):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        slot_kw = {}
+        if offload is not None:
+            slot_kw = dict(expert_slots=offload.build_view(off),
+                           slot_fetch=offload, slot_phase="prefill")
         logits, caches, _ = apply_model(params, tokens, cfg,
                                         positions=positions, caches=caches,
                                         moe_capacity=moe_capacity,
-                                        logit_index=length - 1)
+                                        logit_index=length - 1, **slot_kw)
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, caches
 
@@ -102,25 +113,38 @@ def retire_slot(state, slot: int):
 
 
 def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
-                     moe_capacity: Optional[int] = None, policy=None):
+                     moe_capacity: Optional[int] = None, policy=None,
+                     offload=None):
     """Returns decode(params, state, res_vecs=None) -> (state', logits,
     telemetry), greedy.  ``policy`` (name, policy instance or None — see
     ``resolve_policy``) is the offload scheduler run after the forward.
+
+    ``offload`` (an ``ExpertStore``) switches MoE layers to the physical
+    slot-pool path: weights come from ``state["offload"]``'s pool, misses
+    from the store's tier, and dead batch slots never count as misses.  It
+    needs a scheduling policy: slot plans are lowered from its decisions.
 
     Every row decodes at its own position ``pos`` (B,) and, when
     scheduling is on, the routing observables are masked by
     ``state["active"]`` so the policy sees the actual per-step token mix.
     (The reference's shared-position wave layout comes with the wave
     server, ROADMAP.md "other policies and the wave server".)"""
+    from repro_torch.serving.spec import require_offload_policy
     policy = resolve_policy(policy, cfg, dali_cfg)
     use_policy = policy.schedules and cfg.moe is not None
+    if offload is not None:
+        require_offload_policy(policy, cfg)
 
     def decode(params, state, res_vecs=None):
         active = state["active"]
+        slot_kw = {}
+        if offload is not None:
+            slot_kw = dict(expert_slots=offload.build_view(state["offload"]),
+                           slot_fetch=offload, slot_live=active)
         logits, caches, infos = apply_model(
             params, state["tokens"], cfg, positions=state["pos"][:, None],
             caches=state["caches"], moe_capacity=moe_capacity,
-            trace=use_policy)
+            trace=use_policy, **slot_kw)
         nxt = logits[:, -1:].argmax(-1).to(torch.int32)
         # retired/empty slots hold position (their cache row is dead
         # weight until the next admission overwrites it)
@@ -141,8 +165,11 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                      dali_cfg: Optional[DaliConfig] = None, dtype=None,
-                     seed: int = 0, policy=None, device="cuda"):
-    """The per-slot serve state of an empty slot table."""
+                     seed: int = 0, policy=None, device="cuda",
+                     offload=None):
+    """The per-slot serve state of an empty slot table; with ``offload``
+    (an ``ExpertStore``) ``state["offload"]`` holds its slot pool, seeded
+    from the policy's initial resident set."""
     dev = resolve_device(device)
     state = {
         "tokens": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
@@ -153,6 +180,11 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
     policy = resolve_policy(policy, cfg, dali_cfg)
     if policy.schedules and cfg.moe is not None:
         state["dali"] = policy.init(seed=seed, device=dev)
+    if offload is not None:
+        from repro_torch.serving.spec import require_offload_policy
+        require_offload_policy(policy, cfg)
+        state["offload"] = offload.init_device_state(
+            state["dali"]["resident"].cpu().numpy())
     return state
 
 

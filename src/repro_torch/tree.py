@@ -25,3 +25,17 @@ def tree_leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over one tree; ``path`` is the tuple of dict keys
+    and sequence positions leading to the leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, t, path + (i,))
+                          for i, t in enumerate(tree))
+    return fn(path, tree)

@@ -11,6 +11,8 @@ bf16 kernels 3e-2 relative to max |ref| (tests/test_kernels.py's bf16
 tolerance: the kernels round h and P to bf16 where the plain versions keep
 float32).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -193,3 +195,89 @@ def test_cuda_wrappers_refuse_unsupported_inputs(cuda):
     q = torch.zeros((1, 8, 4, 64), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("C,G", [(1, 4), (1, 16), (80, 8), (20, 8)])
+def test_expert_ffn_grouped_over_pool_and_staging_is_bitwise(cuda, C, G):
+    """The offload path's K2 launches: over a slot-pool slice (expert_ids =
+    slots) and over the miss-staging rows (expert_ids = staging rows), each
+    at decode (C = 1) and prefill (C = 20, 80) shapes, equal K2 over the
+    full-resident stack bit for bit, row group by row group."""
+    E, S, d, f = 8, 5, 128, 256
+    xe, wg, wu, wd = _ffn_inputs(cuda, G, E, C, d, f, seed=G + C)
+    rng = np.random.default_rng(C)
+    eids = torch.tensor(rng.integers(0, E, G), dtype=torch.int32,
+                        device=cuda)
+    cnt = torch.tensor(rng.integers(0, C + 1, G), dtype=torch.int32,
+                       device=cuda)
+    full = expert_ffn(xe, wg, wu, wd, counts=cnt, expert_ids=eids)
+    pooled = torch.tensor(rng.permutation(E)[:S], device=cuda)
+    slot_of = torch.full((E,), -1, dtype=torch.int32, device=cuda)
+    slot_of[pooled] = torch.arange(S, dtype=torch.int32, device=cuda)
+    pool = [w[pooled].contiguous() for w in (wg, wu, wd)]
+    slot = slot_of[eids.long()]
+    hit = slot >= 0
+    y = expert_ffn(xe, *pool, counts=torch.where(hit, cnt, 0),
+                   expert_ids=slot.clamp(min=0).contiguous())
+    miss_ids = torch.unique(eids[~hit])
+    staging = [torch.zeros((E,) + tuple(w.shape[1:]), dtype=w.dtype,
+                           device=cuda) for w in (wg, wu, wd)]
+    row_of = torch.zeros((E,), dtype=torch.int32, device=cuda)
+    for r, e in enumerate(miss_ids.tolist()):
+        row_of[e] = r
+        for s_, w in zip(staging, (wg, wu, wd)):
+            s_[r].copy_(w[e])
+    ym = expert_ffn(xe, *staging, counts=torch.where(hit, 0, cnt),
+                    expert_ids=row_of[eids.long()].contiguous())
+    torch.cuda.synchronize()
+    got = torch.where(hit[:, None, None], y, ym)
+    assert torch.equal(got, full)
+
+
+def test_offloaded_decode_on_the_card_equals_full_resident(cuda):
+    """Two bfloat16 layers at small widths: prefill then decode steps with
+    the experts in a pinned host store and a 3-slot pool (misses fetched,
+    plans streamed in every mode) equal full-resident decode on the card."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.model import init_caches, init_model
+    from repro_torch.serving import expert_store as es
+    from repro_torch.serving import steps
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_routed=8))
+    params = init_model(cfg, seed=0, device="cuda")
+    host = init_model(cfg, seed=0, device="cuda", experts="host")
+    pol = steps.resolve_policy("dali", cfg)
+    for mode in ("blocking", "overlap", "pipelined"):
+        store = es.ExpertStore(host, cfg, n_slots=3, mode=mode)
+        assert store.host["gate"].is_pinned()
+        slim = es.strip_expert_params(host, cfg)
+        toks = torch.tensor(np.random.default_rng(1).integers(
+            1, cfg.vocab, (1, 16)), dtype=torch.int32, device=cuda)
+        pre_ref = steps.make_admit_prefill(cfg)
+        pre_slot = steps.make_admit_prefill(cfg, offload=store)
+        dec_ref = steps.make_decode_step(cfg, policy=pol)
+        dec_slot = steps.make_decode_step(cfg, policy=pol, offload=store)
+        s_ref = steps.init_serve_state(cfg, 2, 32, policy=pol)
+        s_slot = steps.init_serve_state(cfg, 2, 32, policy=pol,
+                                        offload=store)
+        c_ref = pre_ref(params, toks, init_caches(cfg, 1, 32), 13)
+        c_slot = pre_slot(slim, toks, init_caches(cfg, 1, 32), 13,
+                          s_slot["offload"])
+        assert torch.equal(c_ref[0], c_slot[0])
+        for s in (s_ref, s_slot):
+            s["active"][:] = True
+        rng, target = np.random.default_rng(2), None
+        for _ in range(6):
+            tok = torch.tensor(rng.integers(1, cfg.vocab, (2, 1)),
+                               dtype=torch.int32, device=cuda)
+            s_ref["tokens"], s_slot["tokens"] = tok, tok.clone()
+            s_slot["offload"] = store.pre_step(s_slot["offload"], mode,
+                                               target)
+            s_ref, lg_ref, _ = dec_ref(params, s_ref)
+            s_slot, lg_slot, tel = dec_slot(slim, s_slot)
+            store.post_dispatch(mode, target)
+            target = store.next_target(s_slot, tel)
+            assert torch.equal(lg_ref, lg_slot), mode
+        st = store.stats()
+        assert st["fallback_rows"] > 0 and st["h2d_rows"] > 0

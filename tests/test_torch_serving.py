@@ -180,7 +180,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(model):
 def test_unported_options_raise_not_implemented(model):
     _, tc, _, tp = model
     for kw in ({"server": "wave"},
-               {"offload": tspec.OffloadSpec(mode="pipelined")}):
+               {"policy": "dali",
+                "offload": tspec.OffloadSpec(mode="pipelined",
+                                             fallback="little")}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tspec.ServeSpec(cfg=tc, device="cpu", **kw).resolve(tp)
     with pytest.raises(tsched.PromptTooLongError):
