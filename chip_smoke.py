@@ -54,6 +54,7 @@ BF16_TOL = 3e-2              # tests/test_kernels.py's bfloat16 tolerance
 TPU = "src/repro/kernels/"
 REPLACES = {
     "gating": TPU + "gating/kernel.py:72",
+    "gating_warp": TPU + "gating/kernel.py:72",
     "expert_ffn_dense": TPU + "expert_ffn/kernel.py:153",
     "expert_ffn_grouped": TPU + "expert_ffn/kernel.py:188",
     "expert_ffn_ragged": TPU + "expert_ffn/kernel.py:210",
@@ -61,6 +62,7 @@ REPLACES = {
 }
 SOURCE = {
     "gating": "src/repro_torch/csrc/gating.cu",
+    "gating_warp": "src/repro_torch/csrc/gating.cu",
     "expert_ffn_dense": "src/repro_torch/csrc/expert_ffn.cu",
     "expert_ffn_grouped": "src/repro_torch/csrc/expert_ffn.cu",
     "expert_ffn_ragged": "src/repro_torch/csrc/expert_ffn.cu",
@@ -172,28 +174,45 @@ def kernel_phase(torch, cfg):
               f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
     # -- K1: router over T rows of E logits, beside the floor of a kernel
-    # that does nothing with K1's launch shape --------------------------
-    from repro_torch.kernels.gating.ops import launch_floor
-    floor = {}
-    for T in (256, 8):
-        floor[T] = (device_ms(torch, lambda: launch_floor(T)),
-                    cuda_ms(torch, lambda: launch_floor(T)))
-        print(f"floor no-op kernel, K1's launch shape T={T}: device_ms="
-              f"{floor[T][0]:.4f} kernel_ms={floor[T][1]:.4f}", flush=True)
-    for T in (256, 8):
-        lg = torch.randn((T, E), generator=gen, device=dev) * 2
-        g1, i1, p1 = gating(lg, K, m.router_type, m.renormalize)
-        g2, i2, p2 = gating_plain(lg, K, m.router_type, m.renormalize)
+    # that does nothing with the same launch shape (csrc/noop.cu): the
+    # path's decode batches 2 and 8 and its 256-token admission bucket,
+    # then off the path the row variant at width 16 (Jamba's router) and
+    # the warp variant (DeepSeek-V2-Lite's and Qwen3-30B-A3B's routers)
+    from repro_torch.kernels.gating.ops import LAUNCH_KEY, launch_floor, plan
+    k1_cases = [(T, E, K, m.router_type, m.renormalize, "")
+                for T in (2, 8, 256)]
+    k1_cases += [(256, e, k, "softmax_topk", True, " off the path")
+                 for e, k in ((16, 2), (64, 6), (128, 8))]
+    for T, e, k, rt, rn, note in k1_cases:
+        variant, width = plan(e, k)
+        floor = (device_ms(torch, lambda: launch_floor(T, e, k)),
+                 cuda_ms(torch, lambda: launch_floor(T, e, k)))
+        lg = torch.randn((T, e), generator=gen, device=dev) * 2
+        g1, i1, p1 = gating(lg, k, rt, rn)
+        g2, i2, p2 = gating_plain(lg, k, rt, rn)
         torch.cuda.synchronize()
-        ok = bool(torch.equal(i1, i2)) and float((g1 - g2).abs().max()) < 1e-5
+        ok = (bool(torch.equal(i1, i2))
+              and float((g1 - g2).abs().max()) < 1e-5
+              and bool(torch.allclose(p1, p2, atol=1e-6, rtol=1e-5)))
         err = max(float((g1 - g2).abs().max()), float((p1 - p2).abs().max()))
-        nbytes = T * E * 4 * 2 + T * K * 8
-        record("gating", f"T={T} E={E} k={K}", err, ok,
-               lambda: gating(lg, K, m.router_type, m.renormalize),
-               lambda: gating_plain(lg, K, m.router_type, m.renormalize),
-               lambda: torch.softmax(torch.topk(lg, K).values, -1),
-               bound(nbytes, T * E * (K + 4), F32_FLOP_S))
-        rows[-1]["floor_device_ms"], rows[-1]["floor_ms"] = floor[T]
+        nbytes = T * e * 4 * 2 + T * k * 8
+        if rt == "topk_softmax":
+            lib = lambda: torch.softmax(torch.topk(lg, k).values, -1)
+        else:
+            lib = lambda: torch.topk(torch.softmax(lg, -1), k)
+        cut = f"row W={width}" if variant == "row" else f"warp {width}/lane"
+        record(LAUNCH_KEY[variant], f"T={T} E={e} k={k} {rt} {cut}{note}",
+               err, ok, lambda: gating(lg, k, rt, rn),
+               lambda: gating_plain(lg, k, rt, rn), lib,
+               bound(nbytes, T * e * (k + 4), F32_FLOP_S))
+        r = rows[-1]
+        r["floor_device_ms"], r["floor_ms"] = floor
+        # K1's least time is the launch floor where it exceeds the bytes
+        r["floor_bound_ms"] = max(r["bound_ms"], floor[0])
+        ratio = r["device_ms"] / max(floor[0], 1e-9)
+        print(f"floor no-op kernel, K1's launch shape T={T} ({variant}): "
+              f"device_ms={floor[0]:.4f} kernel_ms={floor[1]:.4f}; K1 "
+              f"device_ms / floor = {ratio:.2f}", flush=True)
 
     # -- K2: one Mixtral layer's experts ----------------------------------
     s = 1.0 / math.sqrt(d)
@@ -512,7 +531,7 @@ def serve_phase(torch, kernels, name):
 
 KERNEL_GROUPS = (("K2 expert_ffn", ("ffn_gate_up_kernel", "ffn_down_kernel")),
                  ("K3 flash_attention", ("flash_kernel",)),
-                 ("K1 gating", ("gating_kernel",)),
+                 ("K1 gating", ("gating_row_kernel", "gating_warp_kernel")),
                  ("K1 floor (no-op kernel, not on the path)",
                   ("noop_kernel",)),
                  ("matmul (projections, router, lm head)",
@@ -901,8 +920,8 @@ def main():
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     "library_device_ms": r["library_device_ms"],
-                    **{k: r[k] for k in ("floor_device_ms", "floor_ms")
-                       if k in r}})
+                    **{k: r[k] for k in ("floor_device_ms", "floor_ms",
+                                         "floor_bound_ms") if k in r}})
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     failed = [p for p, ok in (("kernels", kernels_ok),

@@ -9,7 +9,8 @@ show that the main path went through the kernels.
 from __future__ import annotations
 
 LAUNCHES = {
-    "gating": 0,
+    "gating": 0,            # K1's row variant (E <= 32)
+    "gating_warp": 0,       # K1's warp variant (E > 32)
     "expert_ffn_dense": 0,
     "expert_ffn_ragged": 0,
     "expert_ffn_grouped": 0,

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gating.cu", "expert_ffn.cu", "flash_attention.cu", "noop.cu")
-HEADERS = ("hopper.cuh",)    # included by the sources: part of the digest
+# included by the sources: part of the digest
+HEADERS = ("hopper.cuh", "gating.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,8 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # logits, gates, idx, probs, T, E, k, router_type, renormalize, stream
-    "gating_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # logits, gates, idx, probs, T, E, k, router_type, renormalize, variant,
+    # width, stream
+    "gating_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # xe, wg, wu, wd, counts, expert_ids, h, y, G, E, C, d, f, act,
     # mw, ns_up, ns_down, stream
     "expert_ffn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -45,8 +47,8 @@ _SIGNATURES = {
     # q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _P),
-    # T, stream (K1's launch shape, no work)
-    "noop_launch": (_I, _P),
+    # T, variant, stream (K1's launch shape, no work)
+    "noop_launch": (_I, _I, _P),
 }
 
 

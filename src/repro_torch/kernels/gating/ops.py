@@ -5,6 +5,9 @@ masked argmax with ties to the lowest index, then the gate transform.
 ``gating_plain`` for CPU tensors.  Both return ``(gates (T,k) f32,
 idx (T,k) int32, probs (T,E) f32)``; ``probs`` is the softmax of the logits
 (sigmoid for the sigmoid router), the router scores ``route`` returns.
+The kernel has two variants, chosen by ``plan``: one row per thread for
+E <= 32 (counted in ``LAUNCHES["gating"]``) and one row per warp above
+(``LAUNCHES["gating_warp"]``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,23 @@ from repro_torch.kernels.build import check, library
 
 NEG = -1e30
 ROUTER_TYPES = {"softmax_topk": 0, "topk_softmax": 1, "sigmoid": 2}
+VARIANTS = {"row": 0, "warp": 1}      # csrc/gating.cuh's GatingVariant
+ROW_WIDTHS = (8, 16, 32)
+MAX_E, MAX_K = 256, 16
+LAUNCH_KEY = {"row": "gating", "warp": "gating_warp"}
+
+
+def plan(E: int, k: int) -> tuple[str, int]:
+    """Variant of the CUDA kernel for E experts and top-k: ``("row", W)``,
+    one row per thread with the row padded to W = 8, 16 or 32 columns, for
+    E <= 32; else ``("warp", L)``, one row per warp with L = ceil(E/32)
+    columns per lane.  Raises for what neither variant takes."""
+    if not (1 <= E <= MAX_E and 1 <= k <= min(E, MAX_K)):
+        raise ValueError(f"gating supports E <= {MAX_E} and 1 <= k <= "
+                         f"min(E, {MAX_K}), got E={E} k={k}")
+    if E <= ROW_WIDTHS[-1]:
+        return "row", next(w for w in ROW_WIDTHS if E <= w)
+    return "warp", -(-E // 32)
 
 
 def gating_plain(logits, top_k: int, router_type: str = "softmax_topk",
@@ -55,9 +75,7 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
     if not logits.is_contiguous():
         raise ValueError("gating needs contiguous logits")
     T, E = logits.shape
-    if not (1 <= top_k <= min(E, 16)) or E > 256:
-        raise ValueError(f"gating supports E <= 256 and 1 <= k <= min(E, 16), "
-                         f"got E={E} k={top_k}")
+    variant, width = plan(E, top_k)
     gates = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
     probs = torch.empty((T, E), dtype=torch.float32, device=logits.device)
@@ -66,15 +84,16 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     check(library().gating_launch(
         logits.data_ptr(), gates.data_ptr(), idx.data_ptr(), probs.data_ptr(),
-        T, E, top_k, ROUTER_TYPES[router_type], int(bool(renormalize)), stream),
-        "gating")
-    kernels.LAUNCHES["gating"] += 1
+        T, E, top_k, ROUTER_TYPES[router_type], int(bool(renormalize)),
+        VARIANTS[variant], width, stream), "gating")
+    kernels.LAUNCHES[LAUNCH_KEY[variant]] += 1
     return gates, idx, probs
 
 
-def launch_floor(T: int, device="cuda"):
+def launch_floor(T: int, E: int, top_k: int, device="cuda"):
     """Launch the no-op kernel of ``csrc/noop.cu`` with K1's launch shape
-    for ``T`` rows: what any kernel of that shape costs the card (a
-    measurement probe, not on the serving path)."""
+    for ``T`` rows of ``E`` logits: what any kernel of that shape costs the
+    card (a measurement probe, not on the serving path)."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    check(library().noop_launch(T, stream), "noop")
+    check(library().noop_launch(T, VARIANTS[plan(E, top_k)[0]], stream),
+          "noop")

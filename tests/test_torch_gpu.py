@@ -21,7 +21,8 @@ from repro_torch import kernels
 from repro_torch.kernels.expert_ffn.ops import expert_ffn, expert_ffn_plain
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
-from repro_torch.kernels.gating.ops import gating, gating_plain
+from repro_torch.kernels.gating.ops import (LAUNCH_KEY, gating,
+                                            gating_plain, plan)
 
 pytestmark = pytest.mark.gpu
 BF16_TOL = 3e-2
@@ -39,6 +40,21 @@ def _rel_err(y, r):
     return float((y.float() - r).abs().max()) / (float(r.abs().max()) + 1e-6)
 
 
+def _check_gating(lg, k, rt, renorm):
+    """One launch of the variant ``plan`` picks, counted under its key; idx
+    exact, gates atol 1e-5, probs atol 1e-6 / rtol 1e-5 against the plain
+    version on the same card."""
+    key = LAUNCH_KEY[plan(lg.shape[1], k)[0]]
+    before = kernels.LAUNCHES[key]
+    g1, i1, p1 = gating(lg, k, rt, renorm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    g2, i2, p2 = gating_plain(lg, k, rt, renorm)
+    assert torch.equal(i1, i2)
+    torch.testing.assert_close(g1, g2, atol=1e-5, rtol=0)
+    torch.testing.assert_close(p1, p2, atol=1e-6, rtol=1e-5)
+
+
 @pytest.mark.parametrize("T,E,k,rt,renorm", [
     (128, 8, 2, "topk_softmax", True),
     (256, 64, 6, "softmax_topk", True),
@@ -50,14 +66,52 @@ def test_gating_kernel_matches_plain(cuda, T, E, k, rt, renorm):
     rng = np.random.default_rng(0)
     lg = torch.tensor(rng.standard_normal((T, E)) * 2, dtype=torch.float32,
                       device=cuda)
-    before = kernels.LAUNCHES["gating"]
-    g1, i1, p1 = gating(lg, k, rt, renorm)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gating"] == before + 1
-    g2, i2, p2 = gating_plain(lg, k, rt, renorm)
-    assert torch.equal(i1, i2)
-    torch.testing.assert_close(g1, g2, atol=1e-5, rtol=0)
-    torch.testing.assert_close(p1, p2, atol=1e-6, rtol=1e-5)
+    _check_gating(lg, k, rt, renorm)
+
+
+@pytest.mark.parametrize("rt,renorm", [("topk_softmax", True),
+                                       ("softmax_topk", True),
+                                       ("softmax_topk", False),
+                                       ("sigmoid", False)])
+@pytest.mark.parametrize("T,E,k", [
+    (1, 8, 2), (2, 8, 2), (8, 8, 2), (256, 8, 2),   # the path's shapes
+    (200, 8, 2), (129, 8, 8),        # T not a multiple of 128 rows per block
+    (129, 16, 2), (77, 16, 16), (300, 32, 8), (64, 32, 16),
+    (50, 5, 3), (50, 12, 1), (50, 30, 4),   # E below its padded width
+    (96, 33, 2), (96, 33, 16),               # the first warp-variant width
+    (64, 64, 6), (40, 256, 16),
+])
+def test_gating_variants_match_plain(cuda, T, E, k, rt, renorm):
+    rng = np.random.default_rng(T * 1000 + E)
+    lg = torch.tensor(rng.standard_normal((T, E)) * 2, dtype=torch.float32,
+                      device=cuda)
+    _check_gating(lg, k, rt, renorm)
+
+
+@pytest.mark.parametrize("E", [8, 16, 32, 33, 64])
+@pytest.mark.parametrize("rt", ["topk_softmax", "softmax_topk", "sigmoid"])
+def test_gating_tied_integer_logits_match_plain(cuda, E, rt):
+    """Rows of integer logits in -2..2 hold many exact ties, in the logits
+    and in the probabilities: every variant gives them to the lowest index,
+    as torch.argmax does."""
+    rng = np.random.default_rng(E)
+    lg = torch.tensor(rng.integers(-2, 3, (257, E)), dtype=torch.float32,
+                      device=cuda)
+    _check_gating(lg, min(E, 6), rt, True)
+
+
+def test_gating_unaligned_logits_match_plain(cuda):
+    """Logits 4 bytes past a 16-byte boundary take the scalar loads."""
+    flat = torch.randn(1 + 130 * 8, device=cuda)
+    lg = flat[1:].view(130, 8)
+    assert lg.data_ptr() % 16
+    _check_gating(lg, 2, "topk_softmax", True)
+
+
+def test_gating_refuses_what_no_variant_takes(cuda):
+    for E, k in ((257, 2), (8, 0), (8, 9), (64, 17)):
+        with pytest.raises(ValueError):
+            gating(torch.zeros((4, E), device=cuda), k)
 
 
 def _ffn_inputs(dev, G, E, C, d, f, seed=0):

@@ -1,6 +1,7 @@
 """CPU checks of what surrounds the port's CUDA kernels: the expert FFN's
-tile plan, the profile's attribution of every kernel, and the ctypes
-bindings against the C entry points.  No card, no nvcc, no JAX."""
+tile plan, the router's variant rule, the profile's attribution of every
+kernel, and the ctypes bindings against the C entry points.  No card, no
+nvcc, no JAX."""
 import re
 import sys
 from pathlib import Path
@@ -9,6 +10,7 @@ import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.expert_ffn.ops import plan
+from repro_torch.kernels.gating import ops as gating_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
@@ -85,3 +87,40 @@ def test_expert_ffn_plan_tiles_divide_every_accepted_shape(C, d, f):
     assert mw in (1, 2) and ns_up in (1, 2) and ns_down in (1, 2)
     assert f % (64 * ns_up) == 0 and d % (64 * ns_down) == 0
     assert (mw == 1) == (C <= 64)
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_gating_plan_for_every_E(k):
+    """Every E in k..256: the row variant with the narrowest padded width
+    that holds the row up to E = 32, the warp variant with ceil(E/32)
+    columns per lane above."""
+    for E in range(k, 257):
+        variant, width = gating_ops.plan(E, k)
+        if E <= 32:
+            assert variant == "row" and width in (8, 16, 32), (E, k)
+            assert E <= width and (width == 8 or E > width // 2), (E, k)
+        else:
+            assert variant == "warp", (E, k)
+            assert width == (E + 31) // 32 and 2 <= width <= 8, (E, k)
+
+
+@pytest.mark.parametrize("E,k", [(0, 1), (257, 1), (8, 0), (8, 9), (4, 5),
+                                 (64, 17), (256, 17)])
+def test_gating_plan_refuses_what_no_variant_takes(E, k):
+    with pytest.raises(ValueError):
+        gating_ops.plan(E, k)
+
+
+def test_gating_variants_and_widths_match_the_c_side():
+    """The variant ids are csrc/gating.cuh's, every row width the plan
+    gives is a case of gating_launch, and each variant has its own launch
+    counter."""
+    header = (CSRC / "gating.cuh").read_text()
+    enum = dict(re.findall(r"k(Row|Warp)Variant = (\d+)", header))
+    assert {k.lower(): int(v) for k, v in enum.items()} == gating_ops.VARIANTS
+    cases = re.findall(r"case (\d+): return launch_row_width<(\d+)>",
+                       _sources()["gating.cu"])
+    assert [int(a) for a, b in cases if a == b] == list(gating_ops.ROW_WIDTHS)
+    from repro_torch import kernels
+    assert set(gating_ops.LAUNCH_KEY.values()) <= set(kernels.LAUNCHES)
+    assert set(gating_ops.LAUNCH_KEY) == set(gating_ops.VARIANTS)
