@@ -32,9 +32,25 @@ outside a checkout.  Phases (any failure exits non-zero):
    Mixtral-8x7B as deep as the host can pin (all 32 layers where it can),
    served pipelined at two cache ratios, must give identical tokens with
    peak device memory below the model's weight bytes.  Its launch counts
-   are read on their own, like phase 5's.
+   are read on their own, like phase 5's;
+7. wave    — ``BatchServer`` (the wave server) with ``dali`` at 8 layers:
+   8 requests × 32 new tokens drawn as in phase 5, one wave left-padded to
+   S = 223 (max_len 256 - 32 - 1), full-resident and then ``pipelined``
+   with the fetch tier, whose tokens must equal full-resident's; K1, K2
+   ragged and K3 must have launched (its counts read on their own).  Both
+   runs pin the MoE capacity at the wave prefill's own C = 560: the
+   prefill is then the published configuration's, and the full-resident
+   decode (T = 8, the capacity sweep) keeps every row as the offloaded
+   decode (the grouped slot path) does.  Unpinned, the full-resident
+   decode's C = 4 drops rows and the tokens part, in the JAX package too;
+8. policies — phase 5's batch-2 requests at 8 layers, offloaded
+   (``pipelined``, fetch tier, cache ratio 0.25) through the continuous
+   server under each of ``static``, ``all_gpu``, ``lru``, ``score``,
+   ``statistical`` and ``random``: every policy must give phase 5's
+   tokens; one line per policy with its rates and counters.
 
-The second-to-last line is the ``kernels`` JSON object, the last line
+Phase 3 also times K3 and K2 ragged at phase 7's wave shapes.  The
+second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -68,6 +84,27 @@ SOURCE = {
     "expert_ffn_ragged": "src/repro_torch/csrc/expert_ffn.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
+
+
+# phase 7's wave: 8 prompts drawn as in phase 5 (24-200 tokens, from this
+# seed), 32 new tokens each, max_len 256; the wave pads to S = 223
+WAVE_BATCH, WAVE_NEW, WAVE_SEED, MAX_LEN = 8, 32, 9, 256
+POLICIES = ("static", "all_gpu", "lru", "score", "statistical", "random")
+
+
+def wave_prompts(cfg):
+    """Phase 7's prompts and the wave's padded length S, as
+    ``BatchServer`` computes it."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.serving.scheduler import _bucket_len
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(WAVE_SEED)
+    prompts = [corpus.sample(rng, int(rng.integers(24, 201)))
+               for _ in range(WAVE_BATCH)]
+    raw = max(len(p) for p in prompts)
+    return prompts, _bucket_len(raw, 16, max(raw, MAX_LEN - WAVE_NEW - 1))
 
 
 def fail(msg):
@@ -104,13 +141,18 @@ def device_ms(torch, fn, iters=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    # a window now and then records no device activity at all (one read
+    # 0.0 ms on the H100 for a kernel that takes 1.6 us): take it again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            break
     return us / iters / 1e3
 
 
@@ -142,7 +184,7 @@ def rel_err(y, r):
 # phase 3: each kernel against its plain version at the main path's shapes
 # --------------------------------------------------------------------------
 
-def kernel_phase(torch, cfg):
+def kernel_phase(torch, cfg, wave_S):
     from repro_torch.kernels.expert_ffn.ops import expert_ffn, expert_ffn_plain
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
@@ -267,6 +309,11 @@ def kernel_phase(torch, cfg):
         xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
         ffn_case("expert_ffn_ragged", f"T={T} E={E} C={C} d={d} f={f}", xe,
                  routed_counts(T), None)
+    T = WAVE_BATCH * wave_S             # phase 7's wave prefill
+    C = expert_capacity(m, T)
+    xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
+    ffn_case("expert_ffn_ragged", f"wave T={T} E={E} C={C} d={d} f={f}",
+             xe, routed_counts(T), None)
     G = 2 * K                           # batch 2 on the sparse decode path
     xe = torch.randn((G, 1, d), generator=gen, device=dev).bfloat16()
     ffn_case("expert_ffn_grouped", f"G={G} C=1 d={d} f={f}", xe,
@@ -298,10 +345,10 @@ def kernel_phase(torch, cfg):
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
     Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
-    for S in (128, 256, 512):
-        q = torch.randn((1, S, Hq, D), generator=gen, device=dev).bfloat16()
-        k = torch.randn((1, S, Hkv, D), generator=gen, device=dev).bfloat16()
-        v = torch.randn((1, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    for B, S in ((1, 128), (1, 256), (1, 512), (WAVE_BATCH, wave_S)):
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).bfloat16()
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
         o = flash_attention(q, k, v, causal=True)
         r = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
@@ -309,14 +356,15 @@ def kernel_phase(torch, cfg):
         ok = rel_err(o, r) < BF16_TOL
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2
+        wave = "wave " if B > 1 else ""
         record("flash_attention",
-               f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok,
+               f"{wave}B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok,
                lambda: flash_attention(q, k, v, causal=True),
                lambda: flash_attention_plain(q, k, v, causal=True),
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               bound((2 * S * Hq + 2 * S * Hkv) * D * 2,
-                     4.0 * Hq * D * pairs, BF16_FLOP_S))
+               bound(B * (2 * S * Hq + 2 * S * Hkv) * D * 2,
+                     4.0 * B * Hq * D * pairs, BF16_FLOP_S))
     torch.cuda.empty_cache()
 
     # -- host cost per wrapper call at decode forms; narrow widths so that
@@ -851,6 +899,155 @@ def offload_phase(torch, kernels, name, ctx):
     return ok, counts
 
 
+# --------------------------------------------------------------------------
+# phase 7: the wave server, full-resident and offloaded
+# --------------------------------------------------------------------------
+
+def wave_phase(torch, kernels, name, cfg, res_vecs, wave):
+    """One wave of 8 requests through ``BatchServer`` with ``dali`` at 8
+    layers (the serve phase's weights, drawn again from seed 0): first
+    full-resident, then ``pipelined`` with the fetch tier, which must give
+    the same tokens.  Returns (ok, launch counts, the 8-layer weights with
+    their experts pinned on the host, for phase 8)."""
+    import numpy as np
+
+    from repro_torch.models.model import host_empty, init_model
+    from repro_torch.models.moe import expert_capacity, is_expert_leaf
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_map_with_path
+
+    t_phase = time.perf_counter()
+    prompts, S = wave
+    params = init_model(cfg, seed=0, device="cuda")
+    host = tree_map_with_path(
+        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
+        if is_expert_leaf(p) else t, params)
+    dcfg = default_dali_config(cfg, cache_ratio=0.25)
+    torch.cuda.synchronize()
+    T = WAVE_BATCH * S
+    print(f"wave: {cfg.n_layers}-layer weights drawn again from seed 0, "
+          f"experts pinned on the host, {time.perf_counter() - t_phase:.1f} "
+          f"s; prompts of {sorted(len(p) for p in prompts)} tokens, "
+          f"{WAVE_NEW} new each -> one wave at S={S} (T={T}, K2 capacity "
+          f"C={expert_capacity(cfg.moe, T)}, pinned for prefill and "
+          "decode)", flush=True)
+    ok = True
+    outs = {}
+    kernels.reset_launch_counts()          # the wave path starts here
+    for mode, p in (("modeled", params), ("pipelined", host)):
+        spec = ServeSpec(cfg=cfg, server="wave", policy="dali",
+                         dali_cfg=dcfg, batch_size=WAVE_BATCH,
+                         max_len=MAX_LEN, eos_id=-1,
+                         moe_capacity=expert_capacity(cfg.moe, T),
+                         offload=OffloadSpec(mode=mode))
+        server = spec.resolve(p).server(res_vecs=res_vecs)
+        for i, pr in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=pr, max_new_tokens=WAVE_NEW))
+        t0 = time.perf_counter()
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mt = server.metrics
+        outs[mode] = {r.rid: r.output for r in done}
+        shape_ok = (mt.waves == 1 and mt.prefill_tokens == T
+                    and all(len(r.output) == WAVE_NEW for r in done))
+        ok = ok and shape_ok and mt.dali.lookups > 0
+        ttft = [r.ttft for r in done]
+        line = (f"wave {mode} batch={WAVE_BATCH}: {len(done)} requests, "
+                f"{mt.waves} wave of {mt.prefill_tokens} prompt tokens "
+                f"(S={mt.prefill_tokens // WAVE_BATCH}), {mt.steps} steps "
+                f"in {wall:.2f} s | prefill "
+                f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s, decode "
+                f"{mt.decode_tokens / mt.decode_s:.1f} tok/s, TTFT p50 "
+                f"{np.percentile(ttft, 50) * 1e3:.1f} ms | "
+                f"{mt.dali.summary()} hits={mt.dali.hits} "
+                f"lookups={mt.dali.lookups}")
+        if server.store is not None:
+            st = server.store.stats()
+            same = outs["pipelined"] == outs["modeled"]
+            ok = ok and same
+            line += (f" | h2d_rows={st['h2d_rows']} fallback_fetches="
+                     f"{st['fallback_fetches']} prefill_fetch_rows="
+                     f"{st['prefill_fetch_rows']} prefill_waves="
+                     f"{st['prefill_waves']} | tokens "
+                     f"{'identical to' if same else 'DIFFER from'} the "
+                     "full-resident wave")
+        print(f"{line} | shape {'ok' if shape_ok else 'FAIL'} | on {name}",
+              flush=True)
+        del server
+        free(torch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    # where the time goes in the full-resident wave
+    server = ServeSpec(cfg=cfg, server="wave", policy="dali", dali_cfg=dcfg,
+                       batch_size=WAVE_BATCH, max_len=MAX_LEN, eos_id=-1,
+                       moe_capacity=expert_capacity(cfg.moe, T)
+                       ).resolve(params).server(res_vecs=res_vecs)
+    for i, pr in enumerate(prompts):
+        server.submit(Request(rid=i, prompt=pr, max_new_tokens=WAVE_NEW))
+    profile_window(torch, server, name,
+                   label=f"wave batch={WAVE_BATCH} full-resident")
+    del server
+    del params
+    free(torch)
+    print(f"wave: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok, counts, (cfg, host, dcfg)
+
+
+# --------------------------------------------------------------------------
+# phase 8: the baseline policies, offloaded
+# --------------------------------------------------------------------------
+
+def policy_phase(torch, kernels, name, hold, batch2, res_vecs):
+    """Phase 5's batch-2 requests through the continuous server, offloaded
+    (pipelined, fetch tier, cache ratio 0.25), under every baseline
+    policy: each must give phase 5's tokens (placement never changes a
+    token)."""
+    import numpy as np
+
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+
+    t_phase = time.perf_counter()
+    cfg, host, dcfg = hold
+    ok = True
+    kernels.reset_launch_counts()          # the policies' path starts here
+    for pol in POLICIES:
+        spec = ServeSpec(cfg=cfg, policy=pol, dali_cfg=dcfg, batch_size=2,
+                         max_len=MAX_LEN, eos_id=-1,
+                         offload=OffloadSpec(mode="pipelined"))
+        server = spec.resolve(host).server(res_vecs=res_vecs)
+        for i, (pr, out) in enumerate(batch2):
+            server.submit(Request(rid=i, prompt=pr, max_new_tokens=len(out)))
+        t0 = time.perf_counter()
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {r.rid: r.output for r in done}
+        same = [got.get(i) for i in range(len(batch2))] \
+            == [out for _, out in batch2]
+        ok = ok and same
+        mt, st = server.metrics, server.store.stats()
+        ttft = [r.ttft for r in done]
+        print(f"policy {pol}: decode {mt.decode_tokens / mt.decode_s:.1f} "
+              f"tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
+              f"h2d_rows={st['h2d_rows']} fallback_fetches="
+              f"{st['fallback_fetches']} | DALI hits/lookups "
+              f"{mt.dali.hits}/{mt.dali.lookups} | {mt.steps} steps in "
+              f"{wall:.2f} s | tokens "
+              f"{'identical to' if same else 'DIFFER from'} phase 5's "
+              f"batch-2 serve | on {name}", flush=True)
+        del server
+        free(torch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    print(f"policies: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return ok, counts
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -884,7 +1081,8 @@ def main():
 
     # -- phase 3: kernels against their plain versions ----------------------
     from repro_torch.configs import get_config
-    rows = kernel_phase(torch, get_config("mixtral-8x7b"))
+    wave = wave_prompts(get_config("mixtral-8x7b"))
+    rows = kernel_phase(torch, get_config("mixtral-8x7b"), wave[1])
     kernels_ok = all(r["ok"] for r in rows)
 
     # -- phase 4: the port on the card against the port on the CPU ----------
@@ -898,22 +1096,42 @@ def main():
         "flash_attention"))
 
     # -- phase 6: physical offload -------------------------------------------
+    cfg8, res_vecs, batch2 = ctx["cfg"], ctx["res_vecs"], ctx["batch2"]
     offload_ok, off_counts = offload_phase(torch, kernels, name, ctx)
     print(f"offload: kernel launches {json.dumps(off_counts)}", flush=True)
     launched_ok = launched_ok and all(off_counts[k] > 0 for k in (
         "gating", "expert_ffn_grouped", "flash_attention"))
 
+    # -- phase 7: the wave server --------------------------------------------
+    wave_ok, wave_counts, hold = wave_phase(torch, kernels, name, cfg8,
+                                            res_vecs, wave)
+    print(f"wave: kernel launches {json.dumps(wave_counts)}", flush=True)
+    launched_ok = launched_ok and all(wave_counts[k] > 0 for k in (
+        "gating", "expert_ffn_ragged", "flash_attention"))
+
+    # -- phase 8: the baseline policies --------------------------------------
+    policies_ok, pol_counts = policy_phase(torch, kernels, name, hold,
+                                           batch2, res_vecs)
+    print(f"policies: kernel launches {json.dumps(pol_counts)}", flush=True)
+    launched_ok = launched_ok and all(pol_counts[k] > 0 for k in (
+        "gating", "expert_ffn_grouped", "flash_attention"))
+    del hold
+
     out = []
     for r in rows:
-        # a row at the offload path's shapes counts that path's launches
-        on_offload = r["shape"].startswith(("pool", "decode miss"))
+        # a row at the offload path's or the wave's shapes counts that
+        # path's launches
+        path = (off_counts if r["shape"].startswith(("pool", "decode miss"))
+                else wave_counts if r["shape"].startswith("wave")
+                else counts)
         out.append({"name": f"{r['name']} [{r['shape']}]", "route": "cuda",
                     "source": SOURCE[r["name"]],
                     "replaces": REPLACES[r["name"]],
-                    "launches": (off_counts if on_offload
-                                 else counts)[r["name"]],
+                    "launches": path[r["name"]],
                     "launches_serve": counts[r["name"]],
                     "launches_offload": off_counts[r["name"]],
+                    "launches_wave": wave_counts[r["name"]],
+                    "launches_policies": pol_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -928,6 +1146,8 @@ def main():
                               ("reference", reference_ok),
                               ("serve", serve_ok),
                               ("offload", offload_ok),
+                              ("wave", wave_ok),
+                              ("policies", policies_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

@@ -1,16 +1,20 @@
 """Cost model for heterogeneous expert execution (paper §4.1, Eq. 4-6).
 
 A copy of the parts of ``repro/core/cost_model.py`` that
-``default_dali_config`` reads: the hardware profile of the paper's platform
-(``LOCAL_PC``) and ``CostModel.for_config`` / ``expert_bytes`` /
-``trans_time``.  Calibration, link topologies and the TPU profile are
-ported with physical offload (ROADMAP.md, "Physical offload").
+``default_dali_config`` and the simulator read: the hardware profile of the
+paper's platform (``LOCAL_PC``), ``CostModel.for_config`` /
+``expert_bytes`` / ``trans_time`` and the per-expert times (``t_cpu``,
+``t_gpu_compute``, ``t_gpu``, ``break_even_workload``).  Calibration
+(``calibrate_cpu``, ``calibrate_link``), link topologies and the TPU
+profile come with fault tolerance (ROADMAP.md queue item 3).
 
 All times are in seconds; workloads ``w`` are token counts per expert.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 from repro_torch.models.config import ModelConfig
 
@@ -71,3 +75,40 @@ class CostModel:
         """Eq. 6: constant PCIe/DMA time to move one expert's weights."""
         return (self.profile.link_latency_s
                 + self.expert_bytes / (self.profile.link_gbps * 1e9))
+
+    def expert_flops(self, w) -> np.ndarray:
+        return 6.0 * np.asarray(w, np.float64) * self.d_model * self.d_expert
+
+    def t_cpu(self, w) -> np.ndarray:
+        """Eq. 4 term: CPU execution time for workload w (0 if w == 0).
+        max(FLOP-bound, DRAM-weight-read-bound): at small w the CPU streams
+        the full expert weights from DRAM regardless of token count."""
+        w = np.asarray(w, np.float64)
+        t_flop = self.expert_flops(w) / (self.profile.cpu_gflops * 1e9)
+        t_mem = self.expert_bytes / (self.profile.cpu_dram_gbps * 1e9)
+        t = self.profile.cpu_overhead_s + np.maximum(t_flop, t_mem)
+        return np.where(w > 0, t, 0.0)
+
+    def t_gpu_compute(self, w) -> np.ndarray:
+        """Accelerator compute: max of FLOP-bound and weight-read-bound."""
+        w = np.asarray(w, np.float64)
+        t_flop = self.expert_flops(w) / (self.profile.gpu_gflops * 1e9)
+        t_mem = self.expert_bytes / (self.profile.gpu_hbm_gbps * 1e9)
+        t = self.profile.gpu_overhead_s + np.maximum(t_flop, t_mem)
+        return np.where(w > 0, t, 0.0)
+
+    def t_gpu(self, w, on_gpu) -> np.ndarray:
+        """Eq. 5 term: max(transfer-unless-resident, compute) (pipelined)."""
+        w = np.asarray(w, np.float64)
+        trans = np.where(np.asarray(on_gpu, bool), 0.0, self.trans_time)
+        t = np.maximum(trans, self.t_gpu_compute(w))
+        return np.where(w > 0, t, 0.0)
+
+    def break_even_workload(self, cached: bool = False) -> float:
+        """Smallest workload where GPU execution (incl. transfer unless
+        cached) beats CPU — the natural static threshold a Fiddler-style
+        policy would profile."""
+        for w in range(1, 1 << 16):
+            if self.t_gpu(w, cached) < self.t_cpu(w):
+                return float(w)
+        return float(1 << 16)

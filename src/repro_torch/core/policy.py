@@ -1,9 +1,10 @@
-"""Offloading policies (port of the ``dali`` and ``none`` policies of
-``repro/core/policy.py``).
+"""Offloading policies (port of ``repro/core/policy.py``).
 
 The paper's three mechanisms — Greedy Assignment (Alg. 1), Residual-Based
 Prefetching (Eq. 10-11) and Workload-Aware Cache Replacement (Alg. 2) —
-compose into one policy with the reference's API::
+are one composition of three swappable sub-policies (assignment, prefetch,
+cache); the paper's baselines are others.  Every composition has the
+reference's API::
 
   init(seed, device) -> state      a dict of tensors, stable across steps
   step(state, workloads, obs) -> (state', Decisions)
@@ -13,13 +14,19 @@ value back to the host, so the decode loop does not wait on it.  The state
 layout is the reference's (``resident``, ``cache``, ``prefetch``, ``tick``,
 ``acc``), so ``repro_torch.bridge`` can carry a reference state over.
 
-Ties follow ``lax.top_k`` and ``jnp.argsort`` (stable, lowest index first)
-through stable sorts; float sums are float32 in the reference's order.
-The reference's other registered policies (static, all_gpu, lru, score,
-statistical, random) are ported later (ROADMAP.md, "other policies").
+Ties follow ``lax.top_k``, ``jnp.argsort`` and ``jnp.argmin`` (lowest
+index first) through stable sorts and ``torch.argmin``; float sums are
+float32 in the reference's order.  The reference's NumPy mirror
+(``step_np``) is not ported: the simulator replays traces through
+``step`` on CPU tensors (``core/simulator.py``).
+
+Registry (``make_policy``): "dali", "static", "all_gpu", "lru", "score",
+"statistical", "random", "none", with the reference's sub-policy
+overrides.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
@@ -166,23 +173,75 @@ def _init_acc(device):
             "hits": i32(), "misses": i32(), "swaps": i32()}
 
 
+
+
 # --------------------------------------------------------------------------
-# Sub-policies of the "dali" composition
+# Assignment sub-policies (expert -> device)
 # --------------------------------------------------------------------------
 
 class GreedyAssign:
-    """Algorithm 1 (the paper's method) over every layer at once."""
+    """Algorithm 1 (the paper's method) over every layer at once.
+
+    Every assignment maps (w, tc, tg) over (L, E) to (on_cpu, on_gpu,
+    T_cpu, T_gpu) with per-layer (L,) makespan components."""
     name = "greedy"
 
     def assign(self, w, tc, tg):
         return greedy_assign_torch(tc, tg)
 
 
+def _masked_sum(mask, t):
+    return torch.where(mask, t, 0.0).sum(-1)
+
+
+@dataclass(frozen=True)
+class StaticAssign:
+    """Fiddler/HybriMoE-style workload threshold: > threshold -> GPU."""
+    threshold: float = 2.0
+    name = "static"
+
+    def assign(self, w, tc, tg):
+        on_gpu = w > self.threshold
+        on_cpu = (w > 0) & ~on_gpu
+        return on_cpu, on_gpu, _masked_sum(on_cpu, tc), \
+            _masked_sum(on_gpu, tg)
+
+
+class AllGpuAssign:
+    """Naive baseline: every activated expert executes on the GPU."""
+    name = "all_gpu"
+
+    def assign(self, w, tc, tg):
+        on_gpu = w > 0
+        return torch.zeros_like(on_gpu), on_gpu, \
+            torch.zeros(w.shape[0], dtype=torch.float32, device=w.device), \
+            _masked_sum(on_gpu, tg)
+
+
+class AllCpuAssign:
+    """Naive baseline: every activated expert executes on the CPU."""
+    name = "all_cpu"
+
+    def assign(self, w, tc, tg):
+        on_cpu = w > 0
+        return on_cpu, torch.zeros_like(on_cpu), _masked_sum(on_cpu, tc), \
+            torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+
+
+# --------------------------------------------------------------------------
+# Prefetch sub-policies (predict next-layer workloads)
+# --------------------------------------------------------------------------
+# predict(sub, w, obs, ...) -> (sub', pf_pred (L, E)): ``pf_pred[l]`` is the
+# prediction for layer l, which ``_select_prefetch`` turns into the
+# prefetched set.  ``enabled`` False (NoPrefetch) short-circuits selection
+# to the empty set: a zero prediction must not prefetch arbitrary experts.
+
 class ResidualPrefetch:
     """The paper's residual-corrected gate replay (Eq. 10-11), stateless."""
     name = "residual"
+    enabled = True
 
-    def init(self, dcfg: DaliConfig):
+    def init(self, dcfg: DaliConfig, device):
         return {}
 
     def predict(self, sub, w, obs: Observation, dcfg, top_k, router_type):
@@ -195,6 +254,81 @@ class ResidualPrefetch:
                 router_type, token_mask=obs.token_mask)
         return sub, pf_pred
 
+
+@dataclass(frozen=True)
+class StatisticalPrefetch:
+    """EdgeMoE-style historical activation frequencies.  Predicts layer l
+    from its own (decayed) workload history; observations fold in after
+    predicting, so step t's prediction uses history through t-1."""
+    decay: float = 1.0
+    name = "statistical"
+    enabled = True
+
+    def init(self, dcfg: DaliConfig, device):
+        return {"counts": torch.zeros((dcfg.n_moe_layers, dcfg.n_experts),
+                                      dtype=torch.float32, device=device)}
+
+    def predict(self, sub, w, obs, dcfg, top_k, router_type):
+        return {"counts": self.decay * sub["counts"] + w}, sub["counts"]
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x):
+    """A 32-bit integer mix (xorshift-multiply rounds) over int64 tensors
+    holding 32-bit values; the multipliers stay below 2**31, so no product
+    leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+@dataclass(frozen=True)
+class RandomPrefetch:
+    """Stall-inducing lower bound: random prediction scores.  The reference
+    draws them from ``jax.random``; the port hashes (seed, step, layer,
+    expert) into uniform floats on the serving device, so the draws are
+    deterministic under ``seed`` and need no host round trip.  Like the
+    reference's NumPy mirror, it is held to invariants, not to the
+    reference's draws."""
+    seed: int = 0
+    name = "random"
+    enabled = True
+
+    def init(self, dcfg: DaliConfig, device):
+        return {"t": torch.zeros((), dtype=torch.int64, device=device)}
+
+    def predict(self, sub, w, obs, dcfg, top_k, router_type):
+        t = sub["t"]
+        key = _hash32((t + self.seed * 0x9E3779B1) & _M32)
+        n = torch.arange(w.numel(), dtype=torch.int64, device=w.device)
+        bits = _hash32(_hash32(key ^ n) ^ 0x5BD1E995)
+        pf_pred = ((bits >> 8).float() * 2.0 ** -24).reshape(w.shape)
+        return {"t": t + 1}, pf_pred
+
+
+class NoPrefetch:
+    name = "none"
+    enabled = False
+
+    def init(self, dcfg: DaliConfig, device):
+        return {}
+
+    def predict(self, sub, w, obs, dcfg, top_k, router_type):
+        return sub, torch.zeros(w.shape, dtype=torch.int32, device=w.device)
+
+
+# --------------------------------------------------------------------------
+# Cache sub-policies (which experts stay device-resident)
+# --------------------------------------------------------------------------
+# init(dcfg, gen, device) -> (resident (L, E) bool, sub); update(sub,
+# resident, w, gpu_active, tick, dcfg) -> (resident', sub', n_swaps (L,)).
+# ``tick`` is the post-increment step counter (windowed policies key off
+# it).  The per-expert scans of LRU and score run as a loop over E of
+# tensor ops batched over the L layers, as the greedy assignment does.
 
 def _cache_update(resident, scores, w, do_update, dcfg: DaliConfig):
     """Alg. 2 for every layer: windowed swap of u_size experts.
@@ -222,6 +356,20 @@ def _cache_update(resident, scores, w, do_update, dcfg: DaliConfig):
     return resident, scores, n_swaps
 
 
+def _no_swaps(resident):
+    return torch.zeros(resident.shape[0], dtype=torch.int32,
+                       device=resident.device)
+
+
+def _swap_in(resident, victim, e: int, miss):
+    """Per layer where ``miss``: evict ``victim`` (L,) and make expert ``e``
+    resident, in place (the victim first, as the reference does)."""
+    v = victim[:, None]
+    resident.scatter_(1, v, torch.where(miss[:, None], False,
+                                        resident.gather(1, v)))
+    resident[:, e] = torch.where(miss, True, resident[:, e])
+
+
 class WorkloadAwareCachePolicy:
     """The paper's Alg. 2: windowed workload-score swaps."""
     name = "workload"
@@ -238,6 +386,92 @@ class WorkloadAwareCachePolicy:
         return resident_new, {"scores": scores_new}, n_swaps
 
 
+_STAMP_FREE = torch.iinfo(torch.int32).max
+
+
+class LruCachePolicy:
+    """FastMoE-style LRU over GPU-assigned experts: a hit refreshes the
+    stamp, a miss evicts the least-recently-stamped resident.  Misses ride
+    along with the demand fetch (already charged to the link), so n_swaps
+    stays 0."""
+    name = "lru"
+
+    def init(self, dcfg: DaliConfig, gen, device):
+        shape = (dcfg.n_moe_layers, dcfg.n_experts)
+        return _random_resident(dcfg, gen, device), {
+            "stamp": torch.zeros(shape, dtype=torch.int32, device=device),
+            "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update(self, sub, resident, w, gpu_active, tick, dcfg):
+        t = sub["t"] + 1
+        resident = resident.clone()
+        stamp = sub["stamp"].clone()
+        for e in range(resident.shape[1]):
+            used = gpu_active[:, e]
+            res_e = resident[:, e].clone()
+            stamp[:, e] = torch.where(used & res_e, t, stamp[:, e])
+            victim = torch.argmin(torch.where(resident, stamp, _STAMP_FREE),
+                                  dim=-1)
+            miss = used & ~res_e
+            _swap_in(resident, victim, e, miss)
+            stamp[:, e] = torch.where(miss, t, stamp[:, e])
+        return resident, {"stamp": stamp, "t": t}, _no_swaps(resident)
+
+
+_SCORE_FREE = torch.finfo(torch.float32).max
+
+
+@dataclass(frozen=True)
+class ScoreCachePolicy:
+    """HybriMoE-style score-EMA replacement: per-layer activation scores
+    decay by ``decay`` and accumulate the step's workload; each
+    GPU-activated non-resident expert then evicts the lowest-scoring
+    resident iff it outscores it.  Like LRU, n_swaps stays 0."""
+    decay: float = 0.7
+    name = "score"
+
+    def init(self, dcfg: DaliConfig, gen, device):
+        return _random_resident(dcfg, gen, device), {
+            "score": torch.zeros((dcfg.n_moe_layers, dcfg.n_experts),
+                                 dtype=torch.float32, device=device)}
+
+    def update(self, sub, resident, w, gpu_active, tick, dcfg):
+        score = self.decay * sub["score"] + w
+        resident = resident.clone()
+        for e in range(resident.shape[1]):
+            victim = torch.argmin(torch.where(resident, score, _SCORE_FREE),
+                                  dim=-1)
+            miss = (gpu_active[:, e] & ~resident[:, e]
+                    & (score[:, e] > score.gather(1, victim[:, None])[:, 0]))
+            _swap_in(resident, victim, e, miss)
+        return resident, {"score": score}, _no_swaps(resident)
+
+
+class StaticCachePolicy:
+    """Never replaces: the random initial residents persist (ablation lower
+    bound / MoE-Lightning-style offline placement)."""
+    name = "static"
+
+    def init(self, dcfg: DaliConfig, gen, device):
+        return _random_resident(dcfg, gen, device), {}
+
+    def update(self, sub, resident, w, gpu_active, tick, dcfg):
+        return resident, sub, _no_swaps(resident)
+
+
+class NoCachePolicy:
+    """No device-resident experts at all: every GPU execution is a demand
+    fetch (the 'naive on-demand' lower bound)."""
+    name = "none"
+
+    def init(self, dcfg: DaliConfig, gen, device):
+        return torch.zeros((dcfg.n_moe_layers, dcfg.n_experts),
+                           dtype=torch.bool, device=device), {}
+
+    def update(self, sub, resident, w, gpu_active, tick, dcfg):
+        return resident, sub, _no_swaps(resident)
+
+
 # --------------------------------------------------------------------------
 # The composed policy
 # --------------------------------------------------------------------------
@@ -246,13 +480,18 @@ class WorkloadAwareCachePolicy:
 class ComposedPolicy:
     """OffloadPolicy built from the three sub-policies."""
     name: str
-    assignment: GreedyAssign
-    prefetch: ResidualPrefetch
-    cache: WorkloadAwareCachePolicy
+    assignment: object
+    prefetch: object
+    cache: object
     dcfg: DaliConfig
     top_k: int
     router_type: str = "softmax_topk"
     schedules: bool = field(default=True, init=False)
+
+    def with_dcfg(self, dcfg: DaliConfig) -> "ComposedPolicy":
+        """The same composition over other cost constants; the state keeps
+        its structure as long as the scheduling geometry does."""
+        return dataclasses.replace(self, dcfg=dcfg)
 
     def init(self, seed: int = 0, device="cuda"):
         dev = resolve_device(device)
@@ -262,7 +501,7 @@ class ComposedPolicy:
         return {
             "resident": resident,
             "cache": cache_sub,
-            "prefetch": self.prefetch.init(self.dcfg),
+            "prefetch": self.prefetch.init(self.dcfg, dev),
             "tick": torch.zeros((), dtype=torch.int32, device=dev),
             "acc": _init_acc(dev),
         }
@@ -276,7 +515,10 @@ class ComposedPolicy:
         # --- prefetch: predictions for layers 1..L-1 ----------------------
         pf_sub, pf_pred = self.prefetch.predict(
             state["prefetch"], w, obs, dcfg, self.top_k, self.router_type)
-        prefetched = _select_prefetch(pf_pred, dcfg.prefetch_size)
+        prefetched = (_select_prefetch(pf_pred, dcfg.prefetch_size)
+                      if self.prefetch.enabled
+                      else torch.zeros(w.shape, dtype=torch.bool,
+                                       device=w.device))
 
         # --- assignment against the effective resident set ----------------
         resident_eff = state["resident"] | prefetched
@@ -340,31 +582,82 @@ class NullPolicy:
 # Registry
 # --------------------------------------------------------------------------
 
-POLICY_COMPOSITIONS = {"dali": ("greedy", "residual", "workload")}
-# registered in the reference, ported in a later slice
-NOT_PORTED = ("all_gpu", "lru", "random", "score", "static", "statistical")
+ASSIGNMENTS = {
+    "greedy": GreedyAssign,
+    "static": StaticAssign,
+    "all_gpu": AllGpuAssign,
+    "all_cpu": AllCpuAssign,
+}
+
+PREFETCHES = {
+    "residual": ResidualPrefetch,
+    "statistical": StatisticalPrefetch,
+    "random": RandomPrefetch,
+    "none": NoPrefetch,
+}
+
+CACHES = {
+    "workload": WorkloadAwareCachePolicy,
+    "lru": LruCachePolicy,
+    "score": ScoreCachePolicy,
+    "static": StaticCachePolicy,
+    "none": NoCachePolicy,
+}
+
+# name -> (assignment, prefetch, cache); "none" is the NullPolicy
+POLICY_COMPOSITIONS = {
+    "dali": ("greedy", "residual", "workload"),
+    "static": ("static", "none", "static"),
+    "all_gpu": ("all_gpu", "none", "static"),
+    "lru": ("greedy", "none", "lru"),
+    "score": ("greedy", "none", "score"),
+    "statistical": ("greedy", "statistical", "workload"),
+    "random": ("greedy", "random", "workload"),
+}
 
 
 def policy_names():
     return sorted(POLICY_COMPOSITIONS) + ["none"]
 
 
+def _resolve_sub(kind: str, override, default_name: str, registry):
+    """An override is a registry name, an already-built sub-policy instance
+    (parameterised, e.g. ``StaticAssign(threshold=1.0)``), or None (the
+    composition's default)."""
+    if override is None:
+        return registry[default_name]()
+    if isinstance(override, str):
+        if override not in registry:
+            raise ValueError(f"{kind} must be one of "
+                             f"{'|'.join(sorted(registry))}, "
+                             f"got {override!r}")
+        return registry[override]()
+    return override
+
+
 def make_policy(name: str, dcfg: Optional[DaliConfig] = None, *,
-                top_k: int = 1, router_type: str = "softmax_topk"):
-    """Build the "dali" policy or the null policy "none"."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is ported with the other policies "
-            "(ROADMAP.md, 'other policies and the wave server')")
+                top_k: int = 1, router_type: str = "softmax_topk",
+                assignment=None, prefetch=None, cache=None):
+    """Build a registered policy ("dali" | "static" | "all_gpu" | "lru" |
+    "score" | "statistical" | "random" | "none").  The optional
+    ``assignment`` / ``prefetch`` / ``cache`` overrides swap one sub-policy
+    of a named composition, by registry name (``make_policy("dali",
+    cache="lru")``) or as a parameterised instance (``make_policy("static",
+    ..., assignment=StaticAssign(threshold=1.0))``)."""
     if name not in POLICY_COMPOSITIONS and name != "none":
         raise ValueError(f"policy must be one of "
                          f"{'|'.join(policy_names())}, got {name!r}")
+    if name == "none" and (assignment or prefetch or cache):
+        raise ValueError("policy 'none' has no sub-policies to override")
     if name == "none":
         return NullPolicy()
     if dcfg is None:
         raise ValueError(f"policy {name!r} needs a DaliConfig "
                          "(cost constants + scheduling geometry)")
-    return ComposedPolicy(name=name, assignment=GreedyAssign(),
-                          prefetch=ResidualPrefetch(),
-                          cache=WorkloadAwareCachePolicy(),
-                          dcfg=dcfg, top_k=top_k, router_type=router_type)
+    a, p, c = POLICY_COMPOSITIONS[name]
+    return ComposedPolicy(
+        name=name,
+        assignment=_resolve_sub("assignment", assignment, a, ASSIGNMENTS),
+        prefetch=_resolve_sub("prefetch", prefetch, p, PREFETCHES),
+        cache=_resolve_sub("cache", cache, c, CACHES),
+        dcfg=dcfg, top_k=top_k, router_type=router_type)

@@ -1,10 +1,12 @@
-"""Serving launcher of the port: the continuous-batching server with the
-DALI policy over random weights made from ``--seed``, or over weights
-carried from the JAX package (``--weights``, an ``.npz`` written by
+"""Serving launcher of the port: the continuous-batching server (or the
+wave server, ``--server wave``) with a registered offload policy
+(``--policy dali|static|all_gpu|lru|score|statistical|random|none``) over
+random weights made from ``--seed``, or over weights carried from the JAX
+package (``--weights``, an ``.npz`` written by
 ``repro_torch.bridge.save_npz``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
-      --requests 16 --max-new 32 --policy dali
+      --requests 16 --max-new 32 --server continuous --policy dali
 
 It calibrates the residual vectors (paper Eq. 11) from a short decode
 trace, serves ``--requests`` prompts drawn from the ``MarkovCorpus`` and
@@ -25,7 +27,8 @@ requests full-resident ("modeled") and exits non-zero unless every
 request's tokens are identical:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --dtype float32 --offload pipelined --check-exact
+      --dtype float32 --server wave --policy lru --offload pipelined \
+      --check-exact
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def main(argv=None):
     from repro_torch.core.tracing import capture_decode_trace
     from repro_torch.data.pipeline import MarkovCorpus
     from repro_torch.models.model import init_model
-    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.scheduler import SERVER_PRESETS, Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
 
@@ -51,8 +54,13 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
-    ap.add_argument("--server", default="continuous")
-    ap.add_argument("--policy", default="dali", help="dali | none")
+    ap.add_argument("--server", default="continuous",
+                    choices=sorted(SERVER_PRESETS))
+    # no choices=: the policy registry (core/policy.py) is the one place
+    # names are checked, and its error lists them
+    ap.add_argument("--policy", default="dali",
+                    help="offload policy: dali|static|all_gpu|lru|score|"
+                         "statistical|random|none")
     ap.add_argument("--offload", default="modeled",
                     choices=["modeled", "blocking", "overlap", "pipelined"])
     ap.add_argument("--weights", default=None,

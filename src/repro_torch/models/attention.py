@@ -5,7 +5,10 @@ Cache convention (as in the reference): one dict per layer,
 ``{"k": (B, S_c, Hkv, D), "v": (B, S_c, Hkv, D), "pos": (B, S_c)}``, where
 ``pos`` holds each row's absolute position per slot (-1 = empty) and every
 mask is derived from it.  ``positions`` is ``(S,)`` shared by the batch
-(prefill) or ``(B, S)`` per slot (continuous-batching decode).
+(prefill) or ``(B, S)`` per row (decode: the continuous server's per-slot
+positions, or the wave's shared position broadcast to ``(B, 1)``, which
+writes and masks as the shared position does and is never read on the
+host).
 
 Unlike the reference, ``_update_cache`` writes into the cache tensors in
 place (the caller's cache dict is updated and returned): a serving step

@@ -1,25 +1,31 @@
-"""Slot-level continuous batching with prefill-on-admit (port of
-``ContinuousBatchServer`` in ``repro/serving/scheduler.py``).
+"""Serving schedulers (port of ``repro/serving/scheduler.py``):
+slot-level continuous batching (default) and the wave scheduler.
 
-The server keeps a slot table of ``batch_size`` independent sequences.
-Every step it (1) admits queued requests into free slots — each admission
-is a B = 1 right-padded prefill whose KV rows are copied into the batch
-cache at the slot index, (2) runs ONE batched greedy decode step in which
-every slot sits at its own position, and (3) retires slots whose request
-hit EOS, its token budget or the cache horizon.  The offload policy runs
-after every decode step on the device; its telemetry accumulates there
-and is drained once per flush interval (``TelemetryAggregator``), so the
-decode loop's only host read per step is the batch's new tokens (and,
-with physical offload, the next pool target and the per-layer miss reads).
+``ContinuousBatchServer`` keeps a slot table of ``batch_size`` independent
+sequences.  Every step it (1) admits queued requests into free slots —
+each admission is a B = 1 right-padded prefill whose KV rows are copied
+into the batch cache at the slot index, (2) runs ONE batched decode step in
+which every slot sits at its own position, and (3) retires slots whose
+request hit EOS, its token budget or the cache horizon.
 
-With a physical-offload store the loop drives its hooks where the
-reference does: ``prefill_barrier`` before each admission prefill, then
-per step ``pre_step``, the decode dispatch, ``post_dispatch``, the token
-sync and ``next_target``; the store's counters fold into
-``ServeMetrics.offload_tel`` once per step.
+``BatchServer`` is the reference's wave scheduler: requests are grouped
+into waves of ``batch_size``, left-padded to the longest prompt's bucket,
+prefilled once and decoded in lockstep at one shared position until the
+whole wave drains.  Each wave starts from a fresh serve state (a fresh
+policy state and, with physical offload, a freshly seeded slot pool) and
+closes its telemetry epoch.  It pads every request to the wave's longest
+prompt and keeps finished requests' rows idle: the baseline the
+continuous server is compared against.
 
-The wave server of the reference is ported with the other policies
-(ROADMAP.md, "other policies and the wave server").
+The offload policy runs after every decode step on the device; its
+telemetry accumulates there and is drained once per flush interval
+(``TelemetryAggregator``), so a decode loop's only host read per step is
+the batch's new tokens (and, with physical offload, the next pool target
+and the per-layer miss reads).  With a physical-offload store both servers
+drive its hooks where the reference does: ``prefill_barrier`` before each
+prefill, then per step ``pre_step``, the decode dispatch,
+``post_dispatch``, the token sync and ``next_target``; the store's
+counters fold into ``ServeMetrics.offload_tel`` once per step.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ class ServeMetrics:
     decode_tokens: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    waves: int = 0                      # wave server: waves; cont.: unused
     steps: int = 0                      # decode steps
     occupancy_sum: int = 0              # live slots summed over steps
     requests: int = 0                   # finished requests
@@ -125,14 +132,11 @@ def _bucket_len(n: int, min_bucket: int, cap: int) -> int:
     return max(n, min(b, cap))
 
 
-class ContinuousBatchServer:
-    """Slot-level continuous batching with prefill-on-admit.
-
-    Request outputs INCLUDE the token sampled by the prefill (the first
-    token, which TTFT refers to); ``max_new_tokens`` bounds the total.
-    Build it from a resolved spec (``ServeSpec(...).resolve(params)
-    .server(res_vecs)``) or from keyword arguments, which build that spec
-    (``device`` defaults to ``"cuda"``)."""
+class _Server:
+    """What both servers share: construction from a resolved spec or from
+    keyword arguments (which build that spec; ``device`` defaults to
+    ``"cuda"``) and submission."""
+    preset = ""
 
     def __init__(self, params, cfg: Optional[ModelConfig] = None,
                  batch_size: int = 8, max_len: int = 256, eos_id: int = 1,
@@ -141,17 +145,18 @@ class ContinuousBatchServer:
                  resolved: Optional[ResolvedServe] = None):
         if resolved is None:
             if cfg is None:
-                raise TypeError("ContinuousBatchServer needs cfg or "
+                raise TypeError(f"{type(self).__name__} needs cfg or "
                                 "resolved= (ServeSpec.resolve(params))")
             from repro_torch.serving.spec import OffloadSpec
             resolved = ServeSpec(
-                cfg=cfg, policy=policy, dali_cfg=dali_cfg,
-                batch_size=batch_size, max_len=max_len, eos_id=eos_id,
-                min_bucket=min_bucket, offload=OffloadSpec(mode=offload),
+                cfg=cfg, server=self.preset, policy=policy,
+                dali_cfg=dali_cfg, batch_size=batch_size, max_len=max_len,
+                eos_id=eos_id, min_bucket=min_bucket,
+                offload=OffloadSpec(mode=offload),
                 device=device).resolve(params)
         spec = resolved.spec
         self._resolved = resolved
-        self.params = resolved.params
+        self.params = resolved.params   # expert stacks stripped (physical)
         self.cfg = spec.cfg
         self.device = resolved.device
         self.batch = spec.batch_size
@@ -165,19 +170,7 @@ class ContinuousBatchServer:
         self.min_bucket = spec.min_bucket
         self.queue: deque[Request] = deque()
         self.metrics = ServeMetrics()
-        self._prefill = resolved.admit_prefill()
         self._decode = resolved.decode_step()
-        self._admit = make_admit_step(spec.cfg)
-        a = spec.cfg.attn
-        # rolling (sliding-window) caches keep the LAST S_c positions of a
-        # prefill; right-pad past the window would evict real prompt
-        # tokens, so such configs prefill at exact length
-        self._exact_prefill = bool(a is not None and a.sliding_window
-                                   and a.sliding_window < spec.max_len)
-        # B = 1 cache the admission prefill writes into (in place); its
-        # pos rows are reset to empty before every admission
-        self._fresh_caches = init_caches(spec.cfg, 1, spec.max_len,
-                                         device=self.device)
 
     def submit(self, req: Request):
         if not req.submitted_at:
@@ -185,6 +178,31 @@ class ContinuousBatchServer:
         if len(req.prompt) >= self.max_len:
             raise PromptTooLongError(len(req.prompt), self.max_len)
         self.queue.append(req)
+
+
+class ContinuousBatchServer(_Server):
+    """Slot-level continuous batching with prefill-on-admit.
+
+    Request outputs INCLUDE the token sampled by the prefill (the first
+    token, which TTFT refers to); ``max_new_tokens`` bounds the total.
+    Build it from a resolved spec (``ServeSpec(...).resolve(params)
+    .server(res_vecs)``) or from keyword arguments."""
+    preset = "continuous"
+
+    def __init__(self, params, cfg: Optional[ModelConfig] = None, **kw):
+        super().__init__(params, cfg, **kw)
+        self._prefill = self._resolved.admit_prefill()
+        self._admit = make_admit_step(self.cfg)
+        a = self.cfg.attn
+        # rolling (sliding-window) caches keep the LAST S_c positions of a
+        # prefill; right-pad past the window would evict real prompt
+        # tokens, so such configs prefill at exact length
+        self._exact_prefill = bool(a is not None and a.sliding_window
+                                   and a.sliding_window < self.max_len)
+        # B = 1 cache the admission prefill writes into (in place); its
+        # pos rows are reset to empty before every admission
+        self._fresh_caches = init_caches(self.cfg, 1, self.max_len,
+                                         device=self.device)
 
     def _admit_request(self, state, req: Request, slot: int):
         t0 = time.perf_counter()
@@ -222,7 +240,7 @@ class ContinuousBatchServer:
     def run(self) -> List[Request]:
         B = self.batch
         finished: List[Request] = []
-        state = self._resolved.init_state()
+        state = self._resolved.init_state(per_slot=True)
         slot_req: List[Optional[Request]] = [None] * B
         # physical offload: the previous step's cache ∪ prefetch, pending
         # lowering to a slot plan
@@ -287,3 +305,134 @@ class ContinuousBatchServer:
             self.metrics.fold_offload(self.store.drain())
         self.metrics.requests += len(finished)
         return finished
+
+
+class BatchServer(_Server):
+    """Wave scheduler: equal-padded waves decoded in lockstep (see the
+    module docstring; ContinuousBatchServer is the default).  Outputs
+    include the prefill's token, as in the continuous server."""
+    preset = "wave"
+
+    def __init__(self, params, cfg: Optional[ModelConfig] = None, **kw):
+        super().__init__(params, cfg, **kw)
+        self._prefill = self._resolved.prefill_step()
+
+    def run(self) -> List[Request]:
+        finished: List[Request] = []
+        while self.queue:
+            now = time.perf_counter()
+            wave = []
+            while len(wave) < self.batch:
+                req = _pop_arrived(self.queue, now)
+                if req is None:
+                    break
+                wave.append(req)
+            if not wave:        # the next request has not "arrived" yet
+                time.sleep(max(0.0,
+                               self.queue[0].not_before - time.perf_counter()))
+                continue
+            finished.extend(self._run_wave(wave))
+        return finished
+
+    def _done(self, req: Request, tok: int) -> bool:
+        return tok == self.eos or len(req.output) >= req.max_new_tokens
+
+    def _run_wave(self, wave: List[Request]) -> List[Request]:
+        B = self.batch
+        S_raw = max(len(r.prompt) for r in wave)
+        budget = max(r.max_new_tokens for r in wave)
+        # the bucket bounds the distinct prefill shapes across waves, but
+        # never at the cost of decode budget: it is capped so S + budget
+        # still fits the KV horizon whenever S_raw would
+        S = _bucket_len(S_raw, self.min_bucket,
+                        max(S_raw, self.max_len - budget - 1))
+        prompts = np.zeros((B, S), np.int32)
+        for i, r in enumerate(wave):
+            prompts[i, S - len(r.prompt):] = r.prompt   # LEFT-pad
+
+        # a fresh serve state per wave also re-seeds the slot pool (the
+        # fresh policy state draws its initial resident set again)
+        state = self._resolved.init_state(batch=B)
+        t0 = time.perf_counter()
+        off = None
+        if self.store is not None:
+            off = state["offload"] = self.store.prefill_barrier(
+                state["offload"])
+        tok, caches = self._prefill(
+            self.params, torch.as_tensor(prompts, device=self.device),
+            state["caches"], off)
+        toks0 = tok[:, 0].tolist()                   # waits for the device
+        t_pf = time.perf_counter()
+        self.metrics.prefill_s += t_pf - t0
+        self.metrics.prefill_tokens += B * S
+        state = dict(state, tokens=tok, caches=caches,
+                     pos=torch.tensor(S, dtype=torch.int32,
+                                      device=self.device))
+
+        live = np.arange(B) < len(wave)
+        for i, r in enumerate(wave):
+            r.output.append(int(toks0[i]))
+            r.first_token_at = t_pf
+            if self._done(r, toks0[i]):
+                live[i] = False
+                r.done_at = t_pf
+        t0 = time.perf_counter()
+        pool_target = None
+        for _ in range(min(budget, self.max_len - S - 1)):
+            if not live.any():        # the whole wave done at prefill
+                break
+            # every row live at the top of the step emits one token
+            emitted = int(live.sum())
+            if self.store is not None:
+                state["offload"] = self.store.pre_step(
+                    state["offload"], self.offload, pool_target)
+            # (the reference switches decode variants here, following the
+            # store's degradation ladder; that ladder comes with fault
+            # tolerance, so the plain decode step runs)
+            state, _, tel = self._decode(self.params, state, self.res_vecs)
+            if self.store is not None:
+                self.store.post_dispatch(self.offload, pool_target)
+            toks = state["tokens"][:, 0].tolist()    # the step's token sync
+            t_step = time.perf_counter()
+            if self.store is not None:
+                pool_target = self.store.next_target(state, tel)
+            for i, r in enumerate(wave):
+                if live[i]:
+                    r.output.append(int(toks[i]))
+                    if self._done(r, toks[i]):
+                        live[i] = False
+                        r.done_at = t_step
+            self.metrics.decode_tokens += emitted
+            self.metrics.steps += 1
+            self.metrics.occupancy_sum += emitted
+            if self.store is not None:
+                self.metrics.fold_offload(self.store.drain())
+            self.metrics.dali.observe(state.get("dali"), n_active=emitted)
+        self.metrics.decode_s += time.perf_counter() - t0
+        # each wave re-inits its policy state: close the epoch so the next
+        # wave's accumulator drains from zero again
+        self.metrics.dali.end_epoch()
+        if self.store is not None:
+            self.metrics.fold_offload(self.store.drain())
+        self.metrics.waves += 1
+        self.metrics.requests += len(wave)
+        for r in wave:
+            if not r.done_at:
+                r.done_at = time.perf_counter()
+        return wave
+
+
+SERVER_PRESETS = {
+    "continuous": ContinuousBatchServer,
+    "wave": BatchServer,
+}
+
+
+def make_server(preset: str, params, cfg: ModelConfig, **kw):
+    """Factory over SERVER_PRESETS ('continuous' | 'wave')."""
+    try:
+        cls = SERVER_PRESETS[preset]
+    except KeyError:
+        raise ValueError(f"unknown server preset {preset!r}; "
+                         f"choose from {sorted(SERVER_PRESETS)}") from None
+    return cls(params, cfg, **kw)

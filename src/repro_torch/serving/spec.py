@@ -2,8 +2,8 @@
 ``repro/serving/spec.py``).
 
 ``ServeSpec`` says what to serve (config, server preset, policy, batch
-geometry, device); ``OffloadSpec`` says how expert weights reach the
-device.  ``ServeSpec.resolve(params)`` validates both once, resolves the
+geometry, sampling, device); ``OffloadSpec`` says how expert weights reach
+the device.  ``ServeSpec.resolve(params)`` validates both once, resolves the
 policy, builds the ``ExpertStore`` for the physical modes (blocking,
 overlap, pipelined), strips the routed expert stacks from the served
 params, and returns a ``ResolvedServe`` whose factories build the step
@@ -82,6 +82,8 @@ class ServeSpec:
     eos_id: int = 1
     min_bucket: int = 16
     moe_capacity: Optional[int] = None
+    sample: bool = False
+    temperature: float = 1.0
     offload: OffloadSpec = dataclasses.field(default_factory=OffloadSpec)
     device: Any = "cuda"
 
@@ -91,11 +93,6 @@ class ServeSpec:
         the host or the device)."""
         from repro_torch.serving.steps import resolve_policy
         dev = resolve_device(self.device)
-        if self.server != "continuous":
-            raise NotImplementedError(
-                f"server preset {self.server!r} is ported with the other "
-                "policies (ROADMAP.md, 'other policies and the wave "
-                "server'); the port serves 'continuous'")
         off = self.offload
         policy = resolve_policy(self.policy, self.cfg, self.dali_cfg)
         store = build_store(off.mode, params, self.cfg, policy,
@@ -154,9 +151,19 @@ class ResolvedServe:
 
     def decode_step(self):
         from repro_torch.serving.steps import make_decode_step
-        return make_decode_step(self.spec.cfg, policy=self.policy,
-                                moe_capacity=self.spec.moe_capacity,
+        s = self.spec
+        return make_decode_step(s.cfg, policy=self.policy,
+                                moe_capacity=s.moe_capacity,
+                                sample=s.sample, temperature=s.temperature,
                                 offload=self.store)
+
+    def prefill_step(self):
+        """Wave prefill; with a physical store the sweep streams through the
+        slot pool (call with ``off=state["offload"]``)."""
+        from repro_torch.serving.steps import make_prefill_step
+        return make_prefill_step(self.spec.cfg,
+                                 moe_capacity=self.spec.moe_capacity,
+                                 offload=self.store)
 
     def admit_prefill(self):
         from repro_torch.serving.steps import make_admit_prefill
@@ -164,17 +171,23 @@ class ResolvedServe:
                                   moe_capacity=self.spec.moe_capacity,
                                   offload=self.store)
 
-    def init_state(self, seed: int = 0, batch: Optional[int] = None,
+    def init_state(self, per_slot: bool = False, seed: int = 0,
+                   batch: Optional[int] = None,
                    max_len: Optional[int] = None):
         from repro_torch.serving.steps import init_serve_state
         s = self.spec
         return init_serve_state(s.cfg, batch or s.batch_size,
                                 max_len or s.max_len, policy=self.policy,
-                                seed=seed, device=self.device,
-                                offload=self.store)
+                                per_slot=per_slot, seed=seed,
+                                device=self.device, offload=self.store)
 
     def server(self, res_vecs=None):
         """The server the spec names, built from this resolution."""
-        from repro_torch.serving.scheduler import ContinuousBatchServer
-        return ContinuousBatchServer(self.params, resolved=self,
-                                     res_vecs=res_vecs)
+        from repro_torch.serving.scheduler import SERVER_PRESETS
+        try:
+            cls = SERVER_PRESETS[self.spec.server]
+        except KeyError:
+            raise ValueError(
+                f"unknown server preset {self.spec.server!r}; choose "
+                f"from {sorted(SERVER_PRESETS)}") from None
+        return cls(self.params, resolved=self, res_vecs=res_vecs)

@@ -1,24 +1,36 @@
-"""Serving step functions (port of ``repro/serving/steps.py`` for
-full-resident continuous batching): admission prefill, admission into the
-slot table, retirement, and the greedy decode step with the in-graph
-offload policy.
+"""Serving step functions (port of ``repro/serving/steps.py``): the wave
+prefill, the admission prefill, admission into the slot table, retirement,
+and the decode step with the in-graph offload policy, greedy or sampled.
 
-Per-slot serve state (continuous batching)::
+Two serve-state layouts share the same decode step, as in the reference:
+
+wave (shared position)::
 
   state = {
-    "tokens": (B, 1) int32  — last generated token per slot
-    "pos":    (B,)   int32  — every slot at its own sequence offset
-    "active": (B,)   bool   — live slots (admitted, not yet retired)
+    "tokens": (B, 1) int32  — last generated token per sequence
+    "pos":    ()     int32  — the position every row decodes at
     "caches": model caches (see models/model.py)
     "dali":   policy state (when the policy schedules)
     "offload": the device slot pool and slot table (physical offload, see
               serving/expert_store.py)
+    "rng":    torch.Generator on the serve device (sampled decoding)
   }
 
-Unlike the reference, whose steps are pure functions, the admission and
-the decode write the cache tensors in place: a step then never copies the
-whole batch cache to change one slot's rows.  ``retire_slot`` and
-``admit`` also update ``state``'s tensors in place.
+per-slot (continuous batching)::
+
+  state = {
+    "tokens": (B, 1) int32
+    "pos":    (B,)   int32  — every slot at its own sequence offset
+    "active": (B,)   bool   — live slots (admitted, not yet retired)
+    "caches" / "dali" / "offload" / "rng" as above
+  }
+
+The decode step dispatches on ``state["pos"].dim()``.  Unlike the
+reference, whose steps are pure functions, the prefills and the decode
+write the cache tensors in place (a step then never copies the whole batch
+cache to change one slot's rows), ``retire_slot`` and ``admit`` update
+``state``'s tensors in place, and sampling advances ``state["rng"]`` in
+place where the reference splits a key.
 """
 from __future__ import annotations
 
@@ -35,13 +47,18 @@ from repro_torch.models.model import apply_model, collect_policy_obs, init_cache
 def resolve_policy(policy, cfg: ModelConfig,
                    dali_cfg: Optional[DaliConfig] = None):
     """str | policy instance | None -> policy.  ``None`` means "dali" when
-    a ``DaliConfig`` is given, else scheduling off.  A missing
+    a ``DaliConfig`` is given, else scheduling off.  Names are checked
+    against the registry here, at server / step construction; a missing
     ``dali_cfg`` is filled from ``default_dali_config``; non-MoE
     architectures resolve to the null policy."""
-    from repro_torch.core.policy import make_policy
+    from repro_torch.core.policy import make_policy, policy_names
     if policy is None:
         policy = "dali" if dali_cfg is not None else "none"
     if isinstance(policy, str):
+        names = policy_names()
+        if policy not in names:
+            raise ValueError(f"policy must be one of {'|'.join(names)}, "
+                             f"got {policy!r}")
         if policy == "none" or cfg.moe is None:
             return make_policy("none")
         if dali_cfg is None:
@@ -49,6 +66,38 @@ def resolve_policy(policy, cfg: ModelConfig,
         return make_policy(policy, dali_cfg, top_k=cfg.moe.top_k,
                            router_type=cfg.moe.router_type)
     return policy
+
+
+def _slot_kw(offload, off, **kw):
+    """The slot-path arguments of ``apply_model`` for a store (none
+    without one)."""
+    if offload is None:
+        return {}
+    return dict(expert_slots=offload.build_view(off), slot_fetch=offload,
+                **kw)
+
+
+def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
+                      offload=None):
+    """Wave prefill: returns prefill(params, tokens (B, S), caches,
+    off=None) -> (next_token (B, 1), caches), the caches written in place.
+    The prompts arrive LEFT-padded to one length S and every row runs at
+    positions 0..S-1, as in the reference (pad tokens are attended to).
+
+    ``offload`` (an ``ExpertStore``) runs the sweep through the slot pool
+    (call with ``off=state["offload"]``; params may be stripped of expert
+    stacks), bit-equal to the full-resident sweep."""
+
+    def prefill(params, tokens, caches, off=None):
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        logits, caches, _ = apply_model(
+            params, tokens, cfg, positions=positions, caches=caches,
+            moe_capacity=moe_capacity, last_logit_only=True,
+            **_slot_kw(offload, off, slot_phase="prefill"))
+        return logits[:, -1:].argmax(-1).to(torch.int32), caches
+
+    return prefill
 
 
 def make_admit_prefill(cfg: ModelConfig,
@@ -67,14 +116,10 @@ def make_admit_prefill(cfg: ModelConfig,
     def prefill(params, tokens, caches, length: int, off=None):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        slot_kw = {}
-        if offload is not None:
-            slot_kw = dict(expert_slots=offload.build_view(off),
-                           slot_fetch=offload, slot_phase="prefill")
-        logits, caches, _ = apply_model(params, tokens, cfg,
-                                        positions=positions, caches=caches,
-                                        moe_capacity=moe_capacity,
-                                        logit_index=length - 1, **slot_kw)
+        logits, caches, _ = apply_model(
+            params, tokens, cfg, positions=positions, caches=caches,
+            moe_capacity=moe_capacity, logit_index=length - 1,
+            **_slot_kw(offload, off, slot_phase="prefill"))
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, caches
 
@@ -112,23 +157,35 @@ def retire_slot(state, slot: int):
     return state
 
 
+def sample_tokens(logits, temperature: float, generator):
+    """One draw per row from ``softmax(logits / temperature)``: (B, V) ->
+    (B, 1) int32, from ``generator`` (on the logits' device), with no read
+    back to the host."""
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+
+
 def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
-                     moe_capacity: Optional[int] = None, policy=None,
-                     offload=None):
+                     moe_capacity: Optional[int] = None,
+                     sample: bool = False, temperature: float = 1.0,
+                     policy=None, offload=None):
     """Returns decode(params, state, res_vecs=None) -> (state', logits,
-    telemetry), greedy.  ``policy`` (name, policy instance or None — see
-    ``resolve_policy``) is the offload scheduler run after the forward.
+    telemetry).  ``policy`` (name, policy instance or None — see
+    ``resolve_policy``) is the offload scheduler run after the forward;
+    ``sample`` draws each next token from ``softmax(logits /
+    temperature)`` with ``state["rng"]`` instead of taking the argmax.
 
     ``offload`` (an ``ExpertStore``) switches MoE layers to the physical
     slot-pool path: weights come from ``state["offload"]``'s pool, misses
     from the store's tier, and dead batch slots never count as misses.  It
     needs a scheduling policy: slot plans are lowered from its decisions.
 
-    Every row decodes at its own position ``pos`` (B,) and, when
-    scheduling is on, the routing observables are masked by
-    ``state["active"]`` so the policy sees the actual per-step token mix.
-    (The reference's shared-position wave layout comes with the wave
-    server, ROADMAP.md "other policies and the wave server".)"""
+    Both serve-state layouts: a per-slot ``pos`` (B,) decodes every row at
+    its own position and masks the routing observables by
+    ``state["active"]``, so the policy sees the actual per-step token mix; a
+    scalar ``pos`` decodes the wave way, every row at the shared position,
+    with nothing masked (every row counts, finished requests' rows too, as
+    in the reference)."""
     from repro_torch.serving.spec import require_offload_policy
     policy = resolve_policy(policy, cfg, dali_cfg)
     use_policy = policy.schedules and cfg.moe is not None
@@ -136,19 +193,29 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
         require_offload_policy(policy, cfg)
 
     def decode(params, state, res_vecs=None):
-        active = state["active"]
-        slot_kw = {}
-        if offload is not None:
-            slot_kw = dict(expert_slots=offload.build_view(state["offload"]),
-                           slot_fetch=offload, slot_live=active)
+        if state["pos"].dim() == 1:
+            positions = state["pos"][:, None]                  # (B, 1)
+            active = state["active"]
+        else:
+            # the shared position broadcast to every row: the caches'
+            # per-row scatter writes where a shared write would, and the
+            # position is never read on the host
+            positions = state["pos"].reshape(1, 1).expand(
+                state["tokens"].shape[0], 1)
+            active = None
         logits, caches, infos = apply_model(
-            params, state["tokens"], cfg, positions=state["pos"][:, None],
+            params, state["tokens"], cfg, positions=positions,
             caches=state["caches"], moe_capacity=moe_capacity,
-            trace=use_policy, **slot_kw)
-        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            trace=use_policy,
+            **_slot_kw(offload, state.get("offload"), slot_live=active))
+        if sample:
+            nxt = sample_tokens(logits[:, -1], temperature, state["rng"])
+        else:
+            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
         # retired/empty slots hold position (their cache row is dead
         # weight until the next admission overwrites it)
-        new_pos = state["pos"] + active.to(torch.int32)
+        new_pos = (state["pos"] + 1 if active is None
+                   else state["pos"] + active.to(torch.int32))
         new_state = dict(state, tokens=nxt, pos=new_pos, caches=caches)
         telemetry = {}
         if use_policy:
@@ -165,18 +232,25 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                      dali_cfg: Optional[DaliConfig] = None, dtype=None,
-                     seed: int = 0, policy=None, device="cuda",
-                     offload=None):
-    """The per-slot serve state of an empty slot table; with ``offload``
+                     seed: int = 0, per_slot: bool = False, policy=None,
+                     device="cuda", offload=None):
+    """The serve state of a wave (``per_slot=False``: one shared position)
+    or of an empty slot table (``per_slot=True``); ``seed`` seeds the
+    policy's initial state and the sampling generator.  With ``offload``
     (an ``ExpertStore``) ``state["offload"]`` holds its slot pool, seeded
     from the policy's initial resident set."""
     dev = resolve_device(device)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed)
     state = {
         "tokens": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "active": torch.zeros((batch,), dtype=torch.bool, device=dev),
+        "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                           device=dev),
         "caches": init_caches(cfg, batch, max_len, device=dev, dtype=dtype),
+        "rng": rng,
     }
+    if per_slot:
+        state["active"] = torch.zeros((batch,), dtype=torch.bool, device=dev)
     policy = resolve_policy(policy, cfg, dali_cfg)
     if policy.schedules and cfg.moe is not None:
         state["dali"] = policy.init(seed=seed, device=dev)

@@ -312,9 +312,10 @@ def test_offloaded_decode_on_the_card_equals_full_resident(cuda):
         pre_slot = steps.make_admit_prefill(cfg, offload=store)
         dec_ref = steps.make_decode_step(cfg, policy=pol)
         dec_slot = steps.make_decode_step(cfg, policy=pol, offload=store)
-        s_ref = steps.init_serve_state(cfg, 2, 32, policy=pol)
+        s_ref = steps.init_serve_state(cfg, 2, 32, policy=pol,
+                                       per_slot=True)
         s_slot = steps.init_serve_state(cfg, 2, 32, policy=pol,
-                                        offload=store)
+                                        offload=store, per_slot=True)
         c_ref = pre_ref(params, toks, init_caches(cfg, 1, 32), 13)
         c_slot = pre_slot(slim, toks, init_caches(cfg, 1, 32), 13,
                           s_slot["offload"])
@@ -335,3 +336,115 @@ def test_offloaded_decode_on_the_card_equals_full_resident(cuda):
             assert torch.equal(lg_ref, lg_slot), mode
         st = store.stats()
         assert st["fallback_rows"] > 0 and st["h2d_rows"] > 0
+
+
+# --------------------------------------------------------------------------
+# the wave server's shapes, the scan caches and sampling on the card
+# --------------------------------------------------------------------------
+
+def test_flash_attention_wave_prefill_shape_matches_plain(cuda):
+    """The wave prefill's K3 call: 8 rows left-padded to S = 223 (a ragged
+    tail), the pad rows all one token's, q/k/v made contiguous from the
+    projections' views as the model makes them."""
+    B, S, Hq, Hkv, D = 8, 223, 32, 8, 128
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal((B, S, 64)) * 0.5,
+                     dtype=torch.bfloat16, device=cuda)
+    for b, n in enumerate((223, 200, 129, 150, 24, 180, 223, 131)):
+        x[b, :S - n] = x[0, 0]                  # left-pad: one token
+    w = lambda n: torch.tensor(rng.standard_normal((64, n)) * 0.2,
+                               dtype=torch.bfloat16, device=cuda)
+    q = (x @ w(Hq * D)).reshape(B, S, Hq, D).contiguous()
+    k = (x @ w(Hkv * D)).reshape(B, S, Hkv, D).contiguous()
+    v = (x @ w(Hkv * D)).reshape(B, S, Hkv, D).contiguous()
+    before = kernels.LAUNCHES["flash_attention"]
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert _rel_err(o, flash_attention_plain(q, k, v, causal=True)) \
+        < BF16_TOL
+
+
+@pytest.mark.parametrize("d,f", [(256, 512), (4096, 14336)])
+def test_expert_ffn_ragged_wave_bucket_matches_plain(cuda, d, f):
+    """K2 ragged at the wave prefill's bucket C = 560 (T = 8 * 223, five
+    128-row M tiles), at small widths and at Mixtral's; counts cover an
+    empty expert, one row, exact tile multiples, a partial last tile and
+    the full bucket."""
+    E, C = 8, 560
+    xe, wg, wu, wd = _ffn_inputs(cuda, E, E, C, d, f, seed=560)
+    cnt = torch.tensor([0, 1, 128, 129, 300, 447, 559, 560],
+                       dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["expert_ffn_ragged"]
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expert_ffn_ragged"] == before + 1
+    r = expert_ffn_plain(xe, wg, wu, wd, counts=cnt)
+    assert _rel_err(y, r) < BF16_TOL
+    rows = torch.arange(C, device=cuda)[None, :] >= cnt[:, None]
+    assert not y[rows].float().abs().sum()
+
+
+@pytest.mark.parametrize("name", ["lru", "score", "statistical", "random"])
+def test_policy_steps_on_the_card_equal_the_cpu(cuda, name):
+    """The LRU and score scans (a loop over E of tensor ops over the
+    layers), the statistical history and the hashed random draws give on
+    the card exactly what they give on the CPU."""
+    from repro_torch.core import policy as pol
+    from repro_torch.tree import tree_leaves, tree_map
+    L, E, T, Dm = 4, 8, 6, 16
+    dcfg = pol.DaliConfig(n_moe_layers=L, n_experts=E, cache_size=3,
+                          prefetch_size=2, w_size=2)
+    p = pol.make_policy(name, dcfg, top_k=2)
+    s_cpu = p.init(seed=1, device="cpu")
+    s_gpu = tree_map(lambda t: t.to(cuda), s_cpu)
+    rng = np.random.default_rng(3)
+    routers = torch.tensor(rng.standard_normal((L, Dm, E)) * 0.3,
+                           dtype=torch.float32)
+    res = torch.zeros((L, Dm))
+    for step in range(12):
+        wl = torch.tensor(np.minimum(rng.zipf(1.5, (L, E)) - 1, 6),
+                          dtype=torch.int32)
+        gi = torch.tensor(rng.standard_normal((L, T, Dm)),
+                          dtype=torch.float32)
+        s_cpu, d_cpu = p.step(s_cpu, wl, pol.Observation(gi, routers, res))
+        s_gpu, d_gpu = p.step(s_gpu, wl.to(cuda), pol.Observation(
+            gi.to(cuda), routers.to(cuda), res.to(cuda)))
+        # integer and bool state exactly; the float accumulators (sums
+        # whose reduction order differs between devices) within 1e-6
+        for a, b in zip(tree_leaves(s_cpu), tree_leaves(s_gpu)):
+            if a.is_floating_point():
+                torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(a, b.cpu()), (name, step)
+        for k in ("on_gpu", "prefetched", "pf_pred", "hits", "misses"):
+            assert torch.equal(d_cpu.tel[k], d_gpu.tel[k].cpu()), (name, k)
+
+
+def test_sampled_decode_on_the_card_is_deterministic(cuda):
+    """Sampled decoding (``torch.multinomial`` from ``state["rng"]`` on the
+    card) gives the same tokens under the same seed, through both
+    servers."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import ServeSpec
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    params = init_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (9, 30, 17)]
+
+    def serve(server, sample):
+        srv = ServeSpec(cfg=cfg, server=server, policy="dali", batch_size=2,
+                        max_len=64, eos_id=-1, sample=sample,
+                        temperature=1.0, device=cuda).resolve(params).server()
+        for i, p in enumerate(prompts):
+            srv.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+        return {r.rid: r.output for r in srv.run()}
+
+    for server in ("continuous", "wave"):
+        a, b = serve(server, True), serve(server, True)
+        assert a == b, server
+        assert a != serve(server, False), server

@@ -210,7 +210,7 @@ def test_per_slot_decode_with_live_and_dead_slots(mixtral):
     js = jsteps.init_serve_state(jc, B, max_len, per_slot=True,
                                  policy="none")
     ts = tsteps.init_serve_state(tc, B, max_len, policy="none",
-                                 device="cpu")
+                                 device="cpu", per_slot=True)
     jpre = jax.jit(jsteps.make_admit_prefill(jc))
     jadm = jax.jit(jsteps.make_admit_step(jc))
     tpre = tsteps.make_admit_prefill(tc)

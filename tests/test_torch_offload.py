@@ -129,9 +129,11 @@ def _run_decode(tc, tp, mode, n_steps=8, B=2, fallback="fetch",
     store = _store(tc, tp, pol, mode, fallback)
     dec_ref = tsteps.make_decode_step(tc, policy=pol)
     dec_slot = tsteps.make_decode_step(tc, policy=pol, offload=store)
-    s_ref = tsteps.init_serve_state(tc, B, MAX_LEN, policy=pol, device="cpu")
+    s_ref = tsteps.init_serve_state(tc, B, MAX_LEN, policy=pol, device="cpu",
+                                    per_slot=True)
     s_slot = tsteps.init_serve_state(tc, B, MAX_LEN, policy=pol,
-                                     device="cpu", offload=store)
+                                     device="cpu", offload=store,
+                                     per_slot=True)
     for s in (s_ref, s_slot):
         s["active"][:] = torch.tensor(active or [True] * B)
     slim = tstore.strip_expert_params(tp, tc)
@@ -184,7 +186,7 @@ def test_dead_slot_never_fetches(model):
     store = _store(tc, tp, pol, "blocking")
     dec = tsteps.make_decode_step(tc, policy=pol, offload=store)
     state = tsteps.init_serve_state(tc, 2, 32, policy=pol, device="cpu",
-                                    offload=store)
+                                    offload=store, per_slot=True)
     state["active"][:] = torch.tensor([True, False])
     _empty_pool(store, state["offload"])
     dec(tstore.strip_expert_params(tp, tc), state)
