@@ -47,9 +47,29 @@ outside a checkout.  Phases (any failure exits non-zero):
    (``pipelined``, fetch tier, cache ratio 0.25) through the continuous
    server under each of ``static``, ``all_gpu``, ``lru``, ``score``,
    ``statistical`` and ``random``: every policy must give phase 5's
-   tokens; one line per policy with its rates and counters.
+   tokens; one line per policy with its rates and counters;
+9. train   — (a) Mixtral-8x7B at its published widths, depth cut to 2
+   layers, bfloat16, random weights from a seed: 3 AdamW steps at batch
+   8 x 128 tokens through ``value_and_grad`` + ``adamw_update`` (the body
+   of ``make_train_step``) with the kernels' autograd Functions; every
+   param leaf must get a finite, non-zero gradient and K1, K2 ragged, K3
+   and their three backward recomputes must have run (counts read on
+   their own); per step the loss, grad norm, step time and peak device
+   memory; then each backward recompute timed beside one PyTorch autograd
+   call of the same function.  (b) one step's gradients of a small
+   bfloat16 model on the card against the same step on the CPU (plain
+   versions): every leaf within 3e-2 relative to max |ref|, ce / aux /
+   router_z within 3e-2, drops exact.  (c) the launcher's path: the smoke
+   Mixtral at 4 layers trained 120 steps as ``repro/launch/serve.py``
+   trains it (ce must fall), residual vectors calibrated full-resident
+   and through the ``pipelined`` slot pool (bit-equal), then batch-2
+   requests served full-resident and offloaded with them (identical
+   tokens).
 
-Phase 3 also times K3 and K2 ragged at phase 7's wave shapes.  The
+Phase 3 also times K3 and K2 ragged at phase 7's wave shapes and K2
+ragged at phase 9's training bucket (C = 320) and the continuous
+server's 512-token admission bucket (C = 160).  Phase 6's full-depth
+serve calibrates its residual vectors through the slot pool.  The
 second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -89,6 +109,11 @@ SOURCE = {
 # phase 7's wave: 8 prompts drawn as in phase 5 (24-200 tokens, from this
 # seed), 32 new tokens each, max_len 256; the wave pads to S = 223
 WAVE_BATCH, WAVE_NEW, WAVE_SEED, MAX_LEN = 8, 32, 9, 256
+# phase 9: full-width steps at batch 8 x 128 tokens (the ragged K2 bucket
+# is then C = 320), and the JAX launcher's smoke training (120 steps of
+# batch 8 x 64, repro/launch/serve.py:114)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 128, 3, 2
+SMOKE_STEPS = 120
 POLICIES = ("static", "all_gpu", "lru", "score", "statistical", "random")
 
 
@@ -314,6 +339,13 @@ def kernel_phase(torch, cfg, wave_S):
     xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
     ffn_case("expert_ffn_ragged", f"wave T={T} E={E} C={C} d={d} f={f}",
              xe, routed_counts(T), None)
+    # phase 9's training bucket and the continuous server's 512-token
+    # admission bucket
+    for T, tag in ((TRAIN_BATCH * TRAIN_SEQ, "train "), (512, "")):
+        C = expert_capacity(m, T)
+        xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
+        ffn_case("expert_ffn_ragged", f"{tag}T={T} E={E} C={C} d={d} f={f}",
+                 xe, routed_counts(T), None)
     G = 2 * K                           # batch 2 on the sparse decode path
     xe = torch.randn((G, 1, d), generator=gen, device=dev).bfloat16()
     ffn_case("expert_ffn_grouped", f"G={G} C=1 d={d} f={f}", xe,
@@ -592,6 +624,19 @@ KERNEL_GROUPS = (("K2 expert_ffn", ("ffn_gate_up_kernel", "ffn_down_kernel")),
 
 def profile_window(torch, server, name, label="batch=8 serve"):
     """Device busy share and device time by kernel group over one serve."""
+    busy, wall_us, groups, _ = device_breakdown(torch, server.run)
+    mt = server.metrics
+    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms "
+          f"(prefill {mt.prefill_s * 1e3:.1f} ms, decode "
+          f"{mt.decode_s * 1e3:.1f} ms over {mt.steps} steps), device busy "
+          f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of wall, idle "
+          f"{100 - 100 * busy / wall_us:.1f}% | on {name}", flush=True)
+    print_groups(groups, busy)
+
+
+def device_breakdown(torch, fn):
+    """Run ``fn`` under torch.profiler: (device busy us, wall us, device us
+    by ``KERNEL_GROUPS`` group, device us by kernel name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -599,29 +644,29 @@ def profile_window(torch, server, name, label="batch=8 serve"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other (elementwise, reductions, copies)"] = 0.0
+    by_name = {}
     busy = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         busy += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
         for g, keys in KERNEL_GROUPS:
             if any(k in e.name for k in keys):
                 groups[g] += us
                 break
         else:
             groups["other (elementwise, reductions, copies)"] += us
-    mt = server.metrics
-    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms "
-          f"(prefill {mt.prefill_s * 1e3:.1f} ms, decode "
-          f"{mt.decode_s * 1e3:.1f} ms over {mt.steps} steps), device busy "
-          f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of wall, idle "
-          f"{100 - 100 * busy / wall_us:.1f}% | on {name}", flush=True)
+    return busy, wall_us, groups, by_name
+
+
+def print_groups(groups, busy):
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"profile   {g}: {us / 1e3:.2f} ms "
               f"({100 * us / max(busy, 1e-9):.1f}% of device time)",
@@ -684,18 +729,41 @@ def serve_offloaded(torch, cfg, params, prompts, mode, dali_cfg, batch,
     """Serve ``prompts`` through ContinuousBatchServer with the dali policy
     and a physical offload mode (fetch tier); returns (server, finished
     requests, wall seconds)."""
-    from repro_torch.serving.scheduler import Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     spec = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dali_cfg,
                      batch_size=batch, max_len=256, eos_id=-1,
                      offload=OffloadSpec(mode=mode))
-    server = spec.resolve(params).server(res_vecs=res_vecs)
+    return run_requests(torch, spec.resolve(params).server(
+        res_vecs=res_vecs), prompts, max_new)
+
+
+def run_requests(torch, server, prompts, max_new):
+    """Submit ``prompts`` to ``server`` and run it; returns (server,
+    finished requests, wall seconds)."""
+    from repro_torch.serving.scheduler import Request
     for i, p in enumerate(prompts):
         server.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
     t0 = time.perf_counter()
     done = server.run()
     torch.cuda.synchronize()
     return server, done, time.perf_counter() - t0
+
+
+def slot_res_vecs(rs, cfg, calib, n_decode=8):
+    """Residual vectors (paper Eq. 11) calibrated through a resolved
+    physical spec's slot pool, as the launcher calibrates an offloaded
+    serve: bit-equal to a full-resident calibration.  The store's counters
+    are zeroed afterwards, so its server counts its own serve only."""
+    import numpy as np
+
+    from repro_torch.core.residual import calibrate_residuals
+    from repro_torch.core.tracing import capture_decode_trace
+    off = rs.init_state()["offload"]
+    tr = capture_decode_trace(rs.params, cfg, calib, n_decode=n_decode,
+                              store=rs.store, off=off)
+    del off
+    rs.store.reset_stats()
+    return np.stack(calibrate_residuals([tr]))
 
 
 def free(torch):
@@ -827,11 +895,28 @@ def offload_phase(torch, kernels, name, ctx):
     rng = np.random.default_rng(7)
     corpus = MarkovCorpus(vocab=cfgL.vocab, seed=0)
     reqs = [corpus.sample(rng, int(rng.integers(24, 201))) for _ in range(4)]
+    calib = np.stack([corpus.sample(rng, 32) for _ in range(8)])
     outs = []
+    res = None
     for ratio in (0.25, 0.125):
-        server, done, wall = serve_offloaded(
-            torch, cfgL, hp, reqs, "pipelined",
-            default_dali_config(cfgL, cache_ratio=ratio), 2, 8)
+        rs = ServeSpec(cfg=cfgL, policy="dali",
+                       dali_cfg=default_dali_config(cfgL, cache_ratio=ratio),
+                       batch_size=2, max_len=256, eos_id=-1,
+                       offload=OffloadSpec(mode="pipelined")).resolve(hp)
+        if res is None:
+            # the weights decide the vectors, not the pool: once is enough
+            t0 = time.perf_counter()
+            res = slot_res_vecs(rs, cfgL, calib)
+            finite = bool(np.isfinite(res).all()) and bool(np.abs(res).sum())
+            ok = ok and finite
+            print(f"offload {depth} layers: residual vectors calibrated "
+                  f"through the slot pool (8 prompts x 32 tokens, 8 decode "
+                  f"steps) in {time.perf_counter() - t0:.1f} s, |res| sum "
+                  f"{float(np.abs(res).sum()):.4f}, finite and non-zero: "
+                  f"{finite}", flush=True)
+        server, done, wall = run_requests(torch, rs.server(res_vecs=res),
+                                          reqs, 8)
+        del rs
         adopted = (server.store.host["gate"].data_ptr()
                    == hp["scan"][0]["mlp"]["gate"].data_ptr())
         ok = ok and adopted and len(done) == 4
@@ -1048,6 +1133,323 @@ def policy_phase(torch, kernels, name, hold, batch2, res_vecs):
     return ok, counts
 
 
+# --------------------------------------------------------------------------
+# phase 9: training on the card
+# --------------------------------------------------------------------------
+
+def train_phase(torch, kernels, name):
+    """(a) full width at 2 layers: 3 AdamW steps, every leaf's gradient
+    finite and non-zero, the backward recomputes timed; (b) one step's
+    gradients on the card against the CPU's on a small bfloat16 model;
+    (c) the launcher's path: smoke training, residual vectors full-resident
+    and through the slot pool (bit-equal), an offloaded serve of the
+    trained model (tokens identical to full-resident)."""
+    t_phase = time.perf_counter()
+    free(torch)
+    print(f"train: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          "on the card at the start of the phase", flush=True)
+    ok_a, counts = train_full_width(torch, kernels, name)
+    ok_b = train_parity(torch, kernels)
+    ok_c = train_launcher_path(torch, name)
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok_a and ok_b and ok_c, counts
+
+
+def train_full_width(torch, kernels, name):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus, batches
+    from repro_torch.launch.train import training_bytes
+    from repro_torch.models.model import init_model
+    from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                                init_adamw)
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("mixtral-8x7b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    opt = init_adamw(params)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"train (a): {cfg.name} at published widths, depth cut from "
+          f"{full.n_layers} to {cfg.n_layers} layers, {n / 1e9:.3f} G "
+          f"params in {cfg.param_dtype}, random from seed 0; params + "
+          f"gradients + AdamW moments {training_bytes(cfg) / 1e9:.1f} GB; "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    # warmup as train_loop sets it: min(50, steps // 10 + 1)
+    oc = OptConfig(lr=1e-4, warmup_steps=min(50, TRAIN_STEPS // 10 + 1),
+                   total_steps=TRAIN_STEPS)
+    loss_fn = make_loss_fn(cfg)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    ok = True
+    kernels.reset_launch_counts()          # the training path starts here
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches(corpus, TRAIN_BATCH, TRAIN_SEQ,
+                                  TRAIN_STEPS, seed=0)):
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        (_, m), grads = value_and_grad(loss_fn, params, batch)
+        ev[1].record()
+        # every leaf: a finite, non-zero gradient
+        bad = [j for j, g in enumerate(tree_leaves(grads))
+               if not (bool(torch.isfinite(g).all())
+                       and float(g.abs().max()) > 0)]
+        params, opt, om = adamw_update(params, grads, opt, oc)
+        ev[2].record()
+        ev[2].synchronize()
+        del grads
+        fb, upd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        fin = all(bool(torch.isfinite(v)) for v in m.values()) and bool(
+            torch.isfinite(om["grad_norm"]))
+        ok = ok and not bad and fin
+        print(f"train (a) step {i + 1}: loss {float(m['loss']):.4f} ce "
+              f"{float(m['ce']):.4f} aux {float(m['aux']):.4f} router_z "
+              f"{float(m['router_z']):.5f} dropped {int(m['dropped'])} "
+              f"grad_norm {float(om['grad_norm']):.4f} lr "
+              f"{float(om['lr']):.2e} | step {fb + upd:.1f} ms (forward + "
+              f"backward {fb:.1f} ms, AdamW {upd:.1f} ms, CUDA events, the "
+              f"leaf check between them excluded) | peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | leaves "
+              f"without a finite non-zero gradient: {bad or 'none'} | on "
+              f"{name}", flush=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    # where the time goes in a step: one more, under torch.profiler
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+        batches(corpus, TRAIN_BATCH, TRAIN_SEQ, 1, seed=1))).items()}
+
+    def one_step():
+        (_, _), grads = value_and_grad(loss_fn, params, batch)
+        adamw_update(params, grads, opt, oc)
+
+    busy, wall_us, groups, by_name = device_breakdown(torch, one_step)
+    print(f"profile train step (full width, {cfg.n_layers} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of "
+          f"wall, idle {100 - 100 * busy / wall_us:.1f}% | on {name}",
+          flush=True)
+    print_groups(groups, busy)
+    for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"profile   kernel {k[:90]}: {us / 1e3:.2f} ms "
+              f"({100 * us / max(busy, 1e-9):.1f}%)", flush=True)
+    need = ("gating", "expert_ffn_ragged", "flash_attention", "gating_bwd",
+            "expert_ffn_bwd", "flash_attention_bwd")
+    ran = all(counts[k] > 0 for k in need)
+    ok = ok and ran
+    print(f"train (a): launches {json.dumps(counts)}; K1, K2 ragged, K3 and "
+          f"their backward recomputes all ran: {ran}", flush=True)
+    backward_lines(torch, params, cfg, name)
+    del params, opt
+    free(torch)
+    return ok, counts
+
+
+def backward_lines(torch, params, cfg, name):
+    """Each backward recompute at phase 9's shapes beside one PyTorch
+    autograd call of the same function (not kernels: plain PyTorch)."""
+    from repro_torch.kernels.expert_ffn.ops import expert_ffn_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.kernels.gating.ops import _gates, _probs
+    from repro_torch.models.moe import expert_capacity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    m, a = cfg.moe, cfg.attn
+    T = TRAIN_BATCH * TRAIN_SEQ
+    E, K, d, C = m.n_routed, m.top_k, cfg.d_model, expert_capacity(m, T)
+    grad = lambda out, ins, g: torch.autograd.grad(out, ins, g)
+    leaf = lambda t: t.detach().requires_grad_()
+    mlp = params["scan"][0]["mlp"]
+    ws = [leaf(mlp[k][0]) for k in ("gate", "up", "down")]
+    idx = torch.randint(0, E, (T, K), generator=gen, device="cuda")
+    counts = torch.bincount(idx.reshape(-1), minlength=E).clamp(max=C) \
+        .to(torch.int32)
+    xe = leaf(torch.randn((E, C, d), generator=gen, device="cuda")
+              .bfloat16())
+    gy = torch.randn((E, C, d), generator=gen, device="cuda").bfloat16()
+
+    def lib_ffn():
+        h = torch.nn.functional.silu(torch.bmm(xe, ws[0])) \
+            * torch.bmm(xe, ws[1])
+        return torch.bmm(h, ws[2])
+
+    Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
+    q = leaf(torch.randn((TRAIN_BATCH, TRAIN_SEQ, Hq, D), generator=gen,
+                         device="cuda").bfloat16())
+    kv = [leaf(torch.randn((TRAIN_BATCH, TRAIN_SEQ, Hkv, D), generator=gen,
+                           device="cuda").bfloat16()) for _ in range(2)]
+    go = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    qt, kt, vt = (leaf(t.detach().transpose(1, 2).contiguous())
+                  for t in (q, *kv))
+    lg = leaf(torch.randn((T, E), generator=gen, device="cuda"))
+    gg = torch.randn((T, K), generator=gen, device="cuda")
+    gp = torch.randn((T, E), generator=gen, device="cuda")
+    sel = torch.topk(lg.detach(), K).indices
+
+    def k1_recompute():
+        probs = _probs(lg, m.router_type)
+        return grad((_gates(lg, probs, sel, m.router_type, m.renormalize),
+                     probs), [lg], (gg, gp))
+
+    def k1_library():
+        return grad((torch.softmax(torch.topk(lg, K).values, -1),
+                     torch.softmax(lg, -1)), [lg], (gg, gp))
+
+    for what, rec, lib in (
+            (f"expert_ffn [train E={E} C={C} d={d} f={m.d_expert}]",
+             lambda: grad(expert_ffn_plain(xe, *ws, counts), [xe, *ws], gy),
+             lambda: grad(lib_ffn(), [xe, *ws], gy)),
+            (f"flash_attention [train B={TRAIN_BATCH} S={TRAIN_SEQ} Hq={Hq} "
+             f"Hkv={Hkv} D={D} causal]",
+             lambda: grad(flash_attention_plain(q, *kv, causal=True),
+                          [q, *kv], go),
+             lambda: grad(torch.nn.functional.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True),
+                 [qt, kt, vt], go.transpose(1, 2))),
+            (f"gating [train T={T} E={E} k={K} {m.router_type}]",
+             k1_recompute, k1_library)):
+        rec_ms = cuda_ms(torch, rec, budget_s=0.5, max_iters=10)
+        lib_ms = cuda_ms(torch, lib, budget_s=0.5, max_iters=10)
+        print(f"backward {what}: plain recompute + autograd "
+              f"{rec_ms:.4f} ms, one PyTorch autograd call of the same "
+              f"function {lib_ms:.4f} ms (CUDA events; not kernels) | on "
+              f"{name}", flush=True)
+    del ws, xe, q, kv, qt, kt, vt
+    free(torch)
+
+
+def train_parity(torch, kernels):
+    """One step's gradients on the card (kernels, autograd Functions)
+    against the same step on the CPU (plain versions), small bfloat16
+    model.  A bfloat16 near-tie can route a token to another expert on one
+    device (phase 4): the routing of the batch is compared first and a
+    batch that routes differently is reported and the next one taken."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.data.pipeline import MarkovCorpus, batches
+    from repro_torch.models.model import apply_model, collect_field, init_model
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    cpu = init_model(cfg, seed=1, device="cpu")
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    loss_fn = make_loss_fn(cfg)
+    for attempt, b in enumerate(batches(MarkovCorpus(vocab=cfg.vocab,
+                                                     seed=2), 2, 64, 3,
+                                        seed=2)):
+        bc = {k: torch.as_tensor(v) for k, v in b.items()}
+        bg = {k: t.to("cuda") for k, t in bc.items()}
+        with torch.no_grad():
+            routes = [collect_field(apply_model(p, x["tokens"], cfg,
+                                                trace=True)[2], "topk_idx")
+                      for p, x in ((cpu, bc), (gpu, bg))]
+        if not torch.equal(routes[0], routes[1].cpu()):
+            print(f"train (b) batch {attempt}: routing diverged between "
+                  "devices (bfloat16 near-tie); next batch", flush=True)
+            continue
+        kernels.reset_launch_counts()
+        (_, mc), gc = value_and_grad(loss_fn, cpu, bc)
+        (_, mg), gg = value_and_grad(loss_fn, gpu, bg)
+        torch.cuda.synchronize()
+        bwd = {k: kernels.LAUNCHES[k] for k in
+               ("gating_bwd", "expert_ffn_bwd", "flash_attention_bwd")}
+        errs = [rel_err(g.cpu(), r) for g, r in zip(tree_leaves(gg),
+                                                    tree_leaves(gc))]
+        m_err = {k: rel_err(mg[k].cpu().reshape(1), mc[k].reshape(1))
+                 for k in ("ce", "aux", "router_z")}
+        ok = (max(errs) < BF16_TOL and all(e < BF16_TOL
+                                           for e in m_err.values())
+              and int(mg["dropped"]) == int(mc["dropped"])
+              and all(v > 0 for v in bwd.values()))
+        print(f"train (b): one step's gradients, card (kernels) against CPU "
+              f"(plain), {len(errs)} leaves: max rel_err {max(errs):.3e} "
+              f"(leaf {errs.index(max(errs))}); ce / aux / router_z rel_err "
+              + " / ".join(f"{m_err[k]:.3e}" for k in m_err)
+              + f"; dropped {int(mg['dropped'])} / {int(mc['dropped'])}; "
+              f"backward recomputes {json.dumps(bwd)} | "
+              f"{'pass' if ok else 'FAIL'}", flush=True)
+        return ok
+    print("train (b): every batch routed differently between devices | FAIL",
+          flush=True)
+    return False
+
+
+def train_launcher_path(torch, name):
+    import numpy as np
+
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core.residual import calibrate_residuals
+    from repro_torch.core.tracing import capture_decode_trace
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import host_empty
+    from repro_torch.models.moe import is_expert_leaf
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_map_with_path
+
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=4, dtype="bfloat16", param_dtype="bfloat16")
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    t0 = time.perf_counter()
+    params, _, hist = train_loop(cfg, SMOKE_STEPS, 8, 64, corpus=corpus,
+                                 seed=0, device="cuda", log_every=40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    falls = hist[-1] < hist[0]
+    print(f"train (c): {cfg.name} at {cfg.n_layers} layers ({cfg.dtype}) "
+          f"trained {SMOKE_STEPS} steps of batch 8 x 64 in {wall:.1f} s "
+          f"({wall / SMOKE_STEPS * 1e3:.1f} ms per step, host clock): ce "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f}, falls: {falls} | on {name}",
+          flush=True)
+    rng = np.random.default_rng(1)
+    calib = np.stack([corpus.sample(rng, 32) for _ in range(8)])
+    res_full = np.stack(calibrate_residuals([capture_decode_trace(
+        params, cfg, calib, n_decode=16)]))
+    host = tree_map_with_path(
+        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
+        if is_expert_leaf(p) else t, params)
+    dcfg = default_dali_config(cfg, cache_ratio=0.5)
+    spec = lambda mode: ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg,
+                                  batch_size=2, max_len=256, eos_id=-1,
+                                  offload=OffloadSpec(mode=mode))
+    rs = spec("pipelined").resolve(host)
+    res_slot = slot_res_vecs(rs, cfg, calib, n_decode=16)
+    same_res = bool(np.array_equal(res_full, res_slot))
+    print(f"train (c): residual vectors full-resident and through the "
+          f"pipelined slot pool bit-equal: {same_res} (|res| sum "
+          f"{float(np.abs(res_full).sum()):.4f})", flush=True)
+    reqs = [corpus.sample(rng, int(rng.integers(24, 65))) for _ in range(4)]
+    outs = {}
+    for mode, r in (("modeled", spec("modeled").resolve(params)),
+                    ("pipelined", rs)):
+        res = res_full if mode == "modeled" else res_slot
+        server, done, wall = run_requests(torch, r.server(res_vecs=res),
+                                          reqs, 16)
+        outs[mode] = {d.rid: d.output for d in done}
+        mt = server.metrics
+        line = (f"train (c) serve {mode} batch=2: {len(done)} requests, "
+                f"{mt.steps} steps in {wall:.2f} s | decode "
+                f"{mt.decode_tokens / mt.decode_s:.1f} tok/s | "
+                f"{mt.dali.summary()} hits={mt.dali.hits} "
+                f"lookups={mt.dali.lookups}")
+        if server.store is not None:
+            st = server.store.stats()
+            line += (f" | h2d_rows={st['h2d_rows']} fallback_fetches="
+                     f"{st['fallback_fetches']}")
+        print(f"{line} | on {name}", flush=True)
+        del server
+    same = outs["pipelined"] == outs["modeled"] and len(outs["modeled"]) == 4
+    print(f"train (c): offloaded tokens identical to full-resident: {same}",
+          flush=True)
+    del rs, host, params
+    free(torch)
+    return falls and same_res and same
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1117,12 +1519,17 @@ def main():
         "gating", "expert_ffn_grouped", "flash_attention"))
     del hold
 
+    # -- phase 9: training ---------------------------------------------------
+    # every phase-9 reading carries the card's name and power limit
+    train_ok, train_counts = train_phase(torch, kernels, card)
+
     out = []
     for r in rows:
         # a row at the offload path's or the wave's shapes counts that
         # path's launches
         path = (off_counts if r["shape"].startswith(("pool", "decode miss"))
                 else wave_counts if r["shape"].startswith("wave")
+                else train_counts if r["shape"].startswith("train")
                 else counts)
         out.append({"name": f"{r['name']} [{r['shape']}]", "route": "cuda",
                     "source": SOURCE[r["name"]],
@@ -1132,6 +1539,7 @@ def main():
                     "launches_offload": off_counts[r["name"]],
                     "launches_wave": wave_counts[r["name"]],
                     "launches_policies": pol_counts[r["name"]],
+                    "launches_train": train_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1148,6 +1556,7 @@ def main():
                               ("offload", offload_ok),
                               ("wave", wave_ok),
                               ("policies", policies_ok),
+                              ("train", train_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

@@ -11,9 +11,12 @@ reproduce).
 ``save_npz`` / ``load_npz`` store such a tree in one ``.npz`` file (keys
 are ``/``-joined paths, tuple positions written ``#i``), which is how
 ``python -m repro_torch.launch.serve --weights`` serves weights made by
-the JAX package.  With ``experts="host"`` both put the routed expert stacks
-in host memory (page-locked when ``device`` is a card) instead of on
-``device``, for a physical-offload store.
+the JAX package; ``save_npz`` also takes a tree of tensors, which is how
+the port's checkpoints are written (``repro_torch/checkpoint/store.py``).
+With ``experts="host"`` ``to_torch`` and ``load_npz`` put the routed expert
+stacks in host memory (page-locked when ``device`` is a card) instead of
+on ``device``, for a physical-offload store.  ``adamw_to_torch`` carries a
+reference AdamW state (``{"mu", "nu", "step"}``).
 """
 from __future__ import annotations
 
@@ -54,8 +57,19 @@ def to_torch(tree, device="cuda", experts: str = "device"):
         lambda path, a: _place(path, _leaf_to_cpu(a), dev, host), tree)
 
 
+def adamw_to_torch(state, device="cuda"):
+    """A reference AdamW state (numpy ``{"mu", "nu", "step"}``) -> the
+    port's: float32 moments shaped like the params and an int32 step."""
+    out = to_torch(state, device)
+    out["mu"] = tree_map_with_path(lambda _, t: t.float(), out["mu"])
+    out["nu"] = tree_map_with_path(lambda _, t: t.float(), out["nu"])
+    out["step"] = out["step"].to(torch.int32)
+    return out
+
+
 def flatten(tree, prefix: str = ""):
-    """numpy pytree -> {path: array} (tuple positions written ``#i``)."""
+    """pytree of numpy arrays or tensors -> {path: leaf} (tuple positions
+    written ``#i``; tensors stay tensors)."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -66,7 +80,7 @@ def flatten(tree, prefix: str = ""):
         for i, v in enumerate(tree):
             out.update(flatten(v, f"{prefix}#{i}/"))
     else:
-        out[prefix[:-1]] = np.asarray(tree)
+        out[prefix[:-1]] = tree if torch.is_tensor(tree) else np.asarray(tree)
     return out
 
 
@@ -92,14 +106,25 @@ def unflatten(flat):
     return fix(root)
 
 
+def _savable(a):
+    """A leaf as a numpy array and whether it holds bfloat16 bits."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16), True
+        return a.numpy(), False
+    if a.dtype.name == "bfloat16":
+        return np.ascontiguousarray(a).view(np.uint16), True
+    return a, False
+
+
 def save_npz(path, tree):
-    """Write a numpy pytree to one ``.npz`` (bfloat16 stored as its bits)."""
+    """Write a pytree of numpy arrays or tensors to one ``.npz`` (a path or
+    an open file; bfloat16 stored as its bits)."""
     arrays = {}
     for k, a in flatten(tree).items():
-        if a.dtype.name == "bfloat16":
-            arrays[k + _BF16] = np.ascontiguousarray(a).view(np.uint16)
-        else:
-            arrays[k] = a
+        a, bf16 = _savable(a)
+        arrays[k + _BF16 if bf16 else k] = a
     np.savez(path, **arrays)
 
 

@@ -14,7 +14,7 @@ from typing import List
 from repro_torch.models.config import MLAConfig, EncoderConfig, ModelConfig, scan_pattern
 
 # architectures the port has a config module for (later slices add the rest
-# of the JAX package's registry, ROADMAP.md "Modules to port")
+# of the JAX package's registry, ROADMAP.md queue 1)
 ARCHS: List[str] = ["mixtral_8x7b"]
 
 
@@ -25,8 +25,9 @@ def canonical(name: str) -> str:
 def get_config(name: str) -> ModelConfig:
     if canonical(name) not in ARCHS:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP.md modules "
-            "11 and 14); the port serves: " + ", ".join(ARCHS))
+            f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
+            "\"The paper's other evaluation models\" and \"Remaining "
+            "architectures\"); the port serves: " + ", ".join(ARCHS))
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.CONFIG
 

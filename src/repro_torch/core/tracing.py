@@ -66,24 +66,37 @@ class RoutingTrace:
 @torch.no_grad()
 def capture_decode_trace(params, cfg: ModelConfig, prompt_tokens,
                          n_decode: int, max_len: Optional[int] = None,
-                         device="cuda") -> RoutingTrace:
+                         device="cuda", store=None,
+                         off=None) -> RoutingTrace:
     """Prefill the prompt (B, S) then greedily decode ``n_decode`` tokens,
     recording routing observables at every decode step (the regime the
-    paper's cache and prefetch operate in)."""
+    paper's cache and prefetch operate in).
+
+    With a physical-offload ``store`` (an ``ExpertStore``) and its device
+    state ``off`` (``state["offload"]``), ``params`` may be stripped of the
+    expert stacks: every MoE layer then runs through the slot pool, with
+    misses fetched from the host store.  Every step takes the slot path's
+    "prefill" regime, which keeps the full-resident path's shapes (its
+    capacity sweep and its drops, or its grouped decode path), so the
+    trace equals a full-resident capture bit for bit."""
     dev = resolve_device(device)
     tokens = torch.as_tensor(np.asarray(prompt_tokens), device=dev)
     B, S = tokens.shape
     max_len = max_len or (S + n_decode + 1)
     caches = init_caches(cfg, B, max_len, device=dev)
+    slot_kw = ({} if store is None else
+               dict(expert_slots=store.build_view(off), slot_fetch=store,
+                    slot_phase="prefill"))
     trace = RoutingTrace(cfg)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     logits, caches, _ = apply_model(params, tokens, cfg, positions=pos,
-                                    caches=caches, trace=True)
+                                    caches=caches, trace=True, **slot_kw)
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
     for t in range(n_decode):
         pos = torch.arange(S + t, S + t + 1, dtype=torch.int32, device=dev)
         logits, caches, infos = apply_model(params, tok, cfg, positions=pos,
-                                            caches=caches, trace=True)
+                                            caches=caches, trace=True,
+                                            **slot_kw)
         trace.append_step(flatten_moe_infos(infos, cfg), n_tokens=B)
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
     return trace

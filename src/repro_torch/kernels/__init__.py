@@ -5,6 +5,12 @@ Each wrapper (``gating.ops.gating``, ``expert_ffn.ops.expert_ffn``,
 CPU tensors and launches its CUDA kernel for CUDA tensors, adding one to
 its entry in ``LAUNCHES`` at each launch and nowhere else.  A run can thus
 show that the main path went through the kernels.
+
+On the card each wrapper is differentiable: when autograd needs its
+gradient, the kernel's launch runs inside a ``torch.autograd.Function``
+whose backward recomputes through the plain version (as the JAX package's
+custom VJP of the expert FFN does); each such backward adds one to its
+``*_bwd`` entry, so a training run can show that every backward ran.
 """
 from __future__ import annotations
 
@@ -15,6 +21,10 @@ LAUNCHES = {
     "expert_ffn_ragged": 0,
     "expert_ffn_grouped": 0,
     "flash_attention": 0,
+    # backward recomputes through the plain versions (not kernels)
+    "gating_bwd": 0,
+    "expert_ffn_bwd": 0,
+    "flash_attention_bwd": 0,
 }
 
 

@@ -5,7 +5,10 @@
 for CPU tensors.  xe (G, C, d); w_gate / w_up (E, d, f); w_down (E, f, d)
 -> (G, C, d) in xe's dtype.  Without ``expert_ids``, G == E and group g
 uses weight set g.  Rows at or beyond ``counts[g]`` are zero in the output
-whatever the bucket tail holds.
+whatever the bucket tail holds.  When autograd needs a gradient (training
+on the card) the launch runs inside ``ExpertFFNFn``, whose backward
+recomputes through ``expert_ffn_plain``; otherwise ``expert_ffn``
+launches directly.
 """
 from __future__ import annotations
 
@@ -43,20 +46,69 @@ def _variant(counts, expert_ids) -> str:
 def expert_ffn_plain(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
                      act: str = "silu"):
     """Plain PyTorch version: float32 arithmetic, output in xe's dtype.
-    Group g indexes its weight set instead of gathering copies of it."""
+    Group g indexes its weight set instead of gathering copies of it (the
+    stacks are unbound once, so a weight's gradient is one stack of its
+    experts' slices, not one full-size buffer per expert)."""
     G, C, d = xe.shape
     fn = ACTS[act]
     if counts is None:
         valid = torch.ones((G, C), dtype=torch.bool, device=xe.device)
     else:
         valid = torch.arange(C, device=xe.device)[None, :] < counts[:, None]
-    x = torch.where(valid[..., None], xe, 0).float()
+    x = torch.where(valid[..., None], xe, 0).float().unbind(0)
     eids = (expert_ids.tolist() if expert_ids is not None else range(G))
-    out = torch.empty((G, C, d), dtype=torch.float32, device=xe.device)
-    for g, e in enumerate(eids):
-        h = fn(x[g] @ w_gate[e].float()) * (x[g] @ w_up[e].float())
-        out[g] = h @ w_down[e].float()
+    wg, wu, wd = (w.unbind(0) for w in (w_gate, w_up, w_down))
+    out = [(fn(x[g] @ wg[e].float()) * (x[g] @ wu[e].float()))
+           @ wd[e].float() for g, e in enumerate(eids)]
+    out = (torch.stack(out) if out
+           else torch.empty((0, C, d), dtype=torch.float32, device=xe.device))
     return torch.where(valid[..., None], out, 0).to(xe.dtype)
+
+
+def _launch(xe, w_gate, w_up, w_down, counts, expert_ids, act: str):
+    """Launch the CUDA kernel on checked tensors -> (G, C, d)."""
+    G, C, d = xe.shape
+    f = w_gate.shape[2]
+    y = torch.empty_like(xe)
+    if G == 0 or C == 0:
+        return y
+    h = torch.empty((G, C, f), dtype=xe.dtype, device=xe.device)
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    check(library().expert_ffn_launch(
+        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        None if expert_ids is None else expert_ids.data_ptr(),
+        h.data_ptr(), y.data_ptr(), G, w_gate.shape[0], C, d, f,
+        ACT_IDS[act], *plan(C, d, f), stream), "expert_ffn")
+    kernels.LAUNCHES["expert_ffn_" + _variant(counts, expert_ids)] += 1
+    return y
+
+
+class ExpertFFNFn(torch.autograd.Function):
+    """K2 for autograd: the forward launches the kernel, the backward
+    recomputes the FFN through ``expert_ffn_plain`` and differentiates it
+    (the JAX package's custom VJP, ``repro/kernels/expert_ffn/ops.py``):
+    dx, dW_gate, dW_up, dW_down; ``counts`` and ``expert_ids`` get none."""
+
+    @staticmethod
+    def forward(ctx, xe, w_gate, w_up, w_down, counts, expert_ids, act):
+        ctx.save_for_backward(xe, w_gate, w_up, w_down, counts, expert_ids)
+        ctx.act = act
+        return _launch(xe, w_gate, w_up, w_down, counts, expert_ids, act)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xe, wg, wu, wd, counts, expert_ids = ctx.saved_tensors
+        kernels.LAUNCHES["expert_ffn_bwd"] += 1
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip((xe, wg, wu, wd), need)]
+            y = expert_ffn_plain(*ins, counts, expert_ids, ctx.act)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(ins, need) if n], gy))
+        return tuple(next(grads) if n else None for n in need) \
+            + (None, None, None)
 
 
 def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
@@ -92,29 +144,19 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     if expert_ids is None and G != E:
         raise ValueError(f"without expert_ids xe needs one group per expert "
                          f"({E}), got {G}")
-    ptrs = []
     for name, t in (("counts", counts), ("expert_ids", expert_ids)):
-        if t is None:
-            ptrs.append(None)
-            continue
-        if t.device != xe.device or t.dtype != torch.int32 \
-                or tuple(t.shape) != (G,) or not t.is_contiguous():
+        if t is not None and (t.device != xe.device or t.dtype != torch.int32
+                              or tuple(t.shape) != (G,)
+                              or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous ({G},) int32 "
                              f"tensor on {xe.device}")
-        ptrs.append(t.data_ptr())
     for name, t in (("xe", xe), ("w_gate", w_gate), ("w_up", w_up),
                     ("w_down", w_down)):
         if t.data_ptr() % 16:
             raise ValueError(f"expert_ffn's CUDA kernel needs 16-byte-aligned "
                              f"tensors; {name} is not")
-    y = torch.empty_like(xe)
-    if G == 0 or C == 0:
-        return y
-    h = torch.empty((G, C, f), dtype=xe.dtype, device=xe.device)
-    stream = torch.cuda.current_stream(xe.device).cuda_stream
-    check(library().expert_ffn_launch(
-        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        ptrs[0], ptrs[1], h.data_ptr(), y.data_ptr(), G, E, C, d, f,
-        ACT_IDS[act], *plan(C, d, f), stream), "expert_ffn")
-    kernels.LAUNCHES["expert_ffn_" + _variant(counts, expert_ids)] += 1
-    return y
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xe, w_gate, w_up, w_down)):
+        return ExpertFFNFn.apply(xe, w_gate, w_up, w_down, counts,
+                                 expert_ids, act)
+    return _launch(xe, w_gate, w_up, w_down, counts, expert_ids, act)

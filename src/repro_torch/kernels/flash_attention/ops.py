@@ -4,6 +4,10 @@ query i at key position Sk - Sq + i; ``csrc/flash_attention.cu``.
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` (dense softmax, float32) for CPU tensors.
 q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
+When autograd needs a gradient (training on the card) the launch runs
+inside ``FlashAttentionFn``, whose backward recomputes through
+``flash_attention_plain``; otherwise ``flash_attention`` launches
+directly.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k/v must be (B, Sk, Hkv, {D}) matching q, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous():
@@ -69,13 +73,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention's CUDA kernel needs 16-byte-"
                              f"aligned tensors; {name} is not")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    opts = (bool(causal), int(window), float(softcap), float(scale))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, *opts)
+    return _launch(q, k, v, *opts)
+
+
+def _launch(q, k, v, causal: bool, window: int, softcap: float,
+            scale: float):
+    """Launch the CUDA kernel on checked tensors -> (B, Sq, Hq, D)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return o
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, Hq,
-        Hkv, D, int(bool(causal)), int(window), float(softcap), float(scale),
-        stream), "flash_attention")
+        Hkv, D, int(causal), window, softcap, scale, stream),
+        "flash_attention")
     kernels.LAUNCHES["flash_attention"] += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 for autograd: the forward launches the kernel, the backward
+    recomputes the attention through ``flash_attention_plain`` and
+    differentiates it (dq, dk, dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return _launch(q, k, v, causal, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, go):
+        kernels.LAUNCHES["flash_attention_bwd"] += 1
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            o = flash_attention_plain(*ins, **ctx.opts)
+            grads = iter(torch.autograd.grad(
+                o, [t for t, n in zip(ins, need) if n], go))
+        return tuple(next(grads) if n else None for n in need) \
+            + (None,) * 4

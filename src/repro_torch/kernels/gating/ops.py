@@ -7,7 +7,11 @@ idx (T,k) int32, probs (T,E) f32)``; ``probs`` is the softmax of the logits
 (sigmoid for the sigmoid router), the router scores ``route`` returns.
 The kernel has two variants, chosen by ``plan``: one row per thread for
 E <= 32 (counted in ``LAUNCHES["gating"]``) and one row per warp above
-(``LAUNCHES["gating_warp"]``).
+(``LAUNCHES["gating_warp"]``).  When autograd needs the logits' gradient
+(training on the card) the launch runs inside ``GatingFn``, whose backward
+recomputes ``gates`` and ``probs`` in plain PyTorch from the kernel's
+``idx``; otherwise ``gating`` launches directly, so a serving step pays
+nothing for it.
 """
 from __future__ import annotations
 
@@ -37,26 +41,85 @@ def plan(E: int, k: int) -> tuple[str, int]:
     return "warp", -(-E // 32)
 
 
-def gating_plain(logits, top_k: int, router_type: str = "softmax_topk",
-                 renormalize: bool = True):
-    """Plain PyTorch version of the kernel (same arithmetic, same ties)."""
-    x = logits.float()
-    probs = torch.sigmoid(x) if router_type == "sigmoid" \
+def _probs(x, router_type: str):
+    """Router scores: sigmoid for the sigmoid router, else softmax."""
+    return torch.sigmoid(x) if router_type == "sigmoid" \
         else torch.softmax(x, dim=-1)
-    work = (x if router_type == "topk_softmax" else probs).clone()
-    vals, idxs = [], []
-    for _ in range(top_k):
-        best_i = torch.argmax(work, dim=-1, keepdim=True)   # first maximum
-        vals.append(work.gather(-1, best_i))
-        idxs.append(best_i)
-        work.scatter_(-1, best_i, NEG)
-    gates = torch.cat(vals, -1)
-    idx = torch.cat(idxs, -1).to(torch.int32)
+
+
+def _gates(x, probs, idx, router_type: str, renormalize: bool):
+    """The gate transform of the chosen ``idx`` (T, k): the selected logits'
+    softmax (``topk_softmax``) or the selected scores, renormalised for
+    ``softmax_topk``.  Differentiable in ``x`` and ``probs``."""
+    src = x if router_type == "topk_softmax" else probs
+    gates = src.gather(-1, idx.long())
     if router_type == "topk_softmax":
         gates = torch.softmax(gates, dim=-1)
     elif router_type == "softmax_topk" and renormalize:
         gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return gates
+
+
+def gating_plain(logits, top_k: int, router_type: str = "softmax_topk",
+                 renormalize: bool = True):
+    """Plain PyTorch version of the kernel (same arithmetic, same ties).
+    The selection runs on a detached copy, so ``gates`` and ``probs`` are
+    differentiable in ``logits`` (as ``lax.top_k``'s values are)."""
+    x = logits.float()
+    probs = _probs(x, router_type)
+    work = (x if router_type == "topk_softmax" else probs).detach().clone()
+    idxs = []
+    for _ in range(top_k):
+        best_i = torch.argmax(work, dim=-1, keepdim=True)   # first maximum
+        idxs.append(best_i)
+        work.scatter_(-1, best_i, NEG)
+    idx = torch.cat(idxs, -1)
+    return (_gates(x, probs, idx, router_type, renormalize),
+            idx.to(torch.int32), probs)
+
+
+def _launch(logits, top_k: int, router_type: str, renormalize: bool):
+    """Launch the CUDA kernel on checked (T, E) float32 logits."""
+    T, E = logits.shape
+    variant, width = plan(E, top_k)
+    gates = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
+    idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
+    probs = torch.empty((T, E), dtype=torch.float32, device=logits.device)
+    if T == 0:
+        return gates, idx, probs
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    check(library().gating_launch(
+        logits.data_ptr(), gates.data_ptr(), idx.data_ptr(), probs.data_ptr(),
+        T, E, top_k, ROUTER_TYPES[router_type], int(bool(renormalize)),
+        VARIANTS[variant], width, stream), "gating")
+    kernels.LAUNCHES[LAUNCH_KEY[variant]] += 1
     return gates, idx, probs
+
+
+class GatingFn(torch.autograd.Function):
+    """K1 for autograd: the forward launches the kernel, the backward
+    recomputes ``gates`` and ``probs`` from the logits in plain PyTorch with
+    the indices the kernel chose (``idx`` has no gradient)."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, router_type, renormalize):
+        gates, idx, probs = _launch(logits, top_k, router_type, renormalize)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(logits, idx)
+        ctx.router = (router_type, renormalize)
+        return gates, idx, probs
+
+    @staticmethod
+    def backward(ctx, g_gates, g_idx, g_probs):
+        logits, idx = ctx.saved_tensors
+        kernels.LAUNCHES["gating_bwd"] += 1
+        with torch.enable_grad():
+            x = logits.detach().requires_grad_()
+            xf = x.float()
+            probs = _probs(xf, ctx.router[0])
+            gates = _gates(xf, probs, idx, *ctx.router)
+            (dx,) = torch.autograd.grad((gates, probs), x, (g_gates, g_probs))
+        return dx, None, None, None
 
 
 def gating(logits, top_k: int, router_type: str = "softmax_topk",
@@ -74,20 +137,9 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
                          f"{tuple(logits.shape)} {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("gating needs contiguous logits")
-    T, E = logits.shape
-    variant, width = plan(E, top_k)
-    gates = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
-    probs = torch.empty((T, E), dtype=torch.float32, device=logits.device)
-    if T == 0:
-        return gates, idx, probs
-    stream = torch.cuda.current_stream(logits.device).cuda_stream
-    check(library().gating_launch(
-        logits.data_ptr(), gates.data_ptr(), idx.data_ptr(), probs.data_ptr(),
-        T, E, top_k, ROUTER_TYPES[router_type], int(bool(renormalize)),
-        VARIANTS[variant], width, stream), "gating")
-    kernels.LAUNCHES[LAUNCH_KEY[variant]] += 1
-    return gates, idx, probs
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return GatingFn.apply(logits, top_k, router_type, renormalize)
+    return _launch(logits, top_k, router_type, renormalize)
 
 
 def launch_floor(T: int, E: int, top_k: int, device="cuda"):

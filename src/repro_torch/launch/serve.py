@@ -1,30 +1,34 @@
 """Serving launcher of the port: the continuous-batching server (or the
 wave server, ``--server wave``) with a registered offload policy
-(``--policy dali|static|all_gpu|lru|score|statistical|random|none``) over
-random weights made from ``--seed``, or over weights carried from the JAX
-package (``--weights``, an ``.npz`` written by
-``repro_torch.bridge.save_npz``).
+(``--policy dali|static|all_gpu|lru|score|statistical|random|none``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --requests 16 --max-new 32 --server continuous --policy dali
 
-It calibrates the residual vectors (paper Eq. 11) from a short decode
-trace, serves ``--requests`` prompts drawn from the ``MarkovCorpus`` and
-prints the server's metrics, the DALI telemetry and latency percentiles.
-``--scale smoke`` (default) serves the JAX launcher's model, the smoke
-variant at ``--layers`` layers; ``--scale full`` serves the published
-widths at ``--layers`` layers.  It runs on ``cuda`` unless ``--device
-cpu`` is given; the CUDA kernels take bfloat16, so ``--dtype`` defaults to
-it.  There is no training step here: training is ported later.
+As the JAX launcher does, it first trains the model ``--train-steps``
+AdamW steps on the ``MarkovCorpus`` (batch 8 x 64 tokens,
+``launch/train.py``) so that routing has real structure, from random
+weights made from ``--seed`` or from weights carried from the JAX package
+(``--weights``, an ``.npz`` written by ``repro_torch.bridge.save_npz``).
+It then calibrates the residual vectors (paper Eq. 11) from a short
+decode trace of the trained model, serves ``--requests`` prompts drawn
+from the corpus and prints the server's metrics, the DALI telemetry and
+latency percentiles.  ``--scale smoke`` (default) serves the JAX
+launcher's model, the smoke variant at ``--layers`` layers, trained 120
+steps by default; ``--scale full`` serves the published widths at
+``--layers`` layers, untrained by default (a non-zero ``--train-steps``
+there first checks that the params, their gradients and the AdamW
+moments fit on the card).  It runs on ``cuda`` unless ``--device cpu`` is
+given; the CUDA kernels take bfloat16, so ``--dtype`` defaults to it.
 
 ``--offload`` picks how the policy's decisions reach the card: "modeled"
 (every expert resident, decisions feed telemetry only) or "blocking",
 "overlap", "pipelined" (pinned host store + device slot pool, see
-serving/expert_store.py; the expert stacks are then created or loaded
-straight into host memory, so the residual vectors, whose calibration
-trace needs them on the card, stay zero).  ``--check-exact`` re-serves the same
-requests full-resident ("modeled") and exits non-zero unless every
-request's tokens are identical:
+serving/expert_store.py; the expert stacks then live in host memory, and
+the calibration trace runs through the store's slot path, so the
+residual vectors equal the full-resident ones bit for bit).
+``--check-exact`` re-serves the same requests full-resident ("modeled")
+and exits non-zero unless every request's tokens are identical:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --dtype float32 --server wave --policy lru --offload pipelined \
@@ -35,6 +39,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 
 def main(argv=None):
@@ -43,10 +48,14 @@ def main(argv=None):
     from repro_torch.core.residual import calibrate_residuals
     from repro_torch.core.tracing import capture_decode_trace
     from repro_torch.data.pipeline import MarkovCorpus
-    from repro_torch.models.model import init_model
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.train import train_loop, training_bytes
+    from repro_torch.models.model import host_empty, init_model
+    from repro_torch.models.moe import is_expert_leaf
     from repro_torch.serving.scheduler import SERVER_PRESETS, Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_map_with_path
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mixtral-8x7b")
@@ -66,6 +75,10 @@ def main(argv=None):
     ap.add_argument("--weights", default=None,
                     help=".npz of parameters carried from the JAX package "
                          "(repro_torch.bridge.save_npz)")
+    ap.add_argument("--train-steps", type=int, default=None,
+                    help="AdamW steps before serving (default: 120 at "
+                         "--scale smoke, as the JAX launcher, 0 at --scale "
+                         "full)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -84,45 +97,79 @@ def main(argv=None):
         cfg = make_smoke(cfg)
     cfg = cfg.replace(n_layers=args.layers, dtype=args.dtype,
                       param_dtype=args.dtype)
+    train_steps = args.train_steps
+    if train_steps is None:
+        train_steps = 120 if args.scale == "smoke" else 0
     if args.check_exact and args.offload == "modeled":
         raise SystemExit("--check-exact needs a physical --offload (it "
                          "compares the run against the full-resident one)")
+    dev = resolve_device(args.device)
+    if train_steps and dev.type == "cuda":
+        need, total = training_bytes(cfg), torch.cuda.mem_get_info(dev)[1]
+        if need > total:
+            raise SystemExit(
+                f"training {cfg.name} at {cfg.n_layers} layers needs "
+                f"{need / 1e9:.1f} GB of params, gradients and AdamW "
+                f"moments; the card has {total / 1e9:.1f} GB (pass "
+                "--train-steps 0 or fewer --layers)")
     corpus = MarkovCorpus(vocab=cfg.vocab, seed=args.seed)
     # a physical store reads the experts from the host: draw them there,
-    # unless the full-resident reference run needs them on the device
-    experts = ("host" if args.offload != "modeled" and not args.check_exact
-               else "device")
+    # unless training or the full-resident reference run needs them on
+    # the device
+    host_experts = args.offload != "modeled" and not args.check_exact
+    experts = "host" if host_experts and not train_steps else "device"
     if args.weights:
-        params = load_npz(args.weights, device=args.device, experts=experts)
+        params = load_npz(args.weights, device=dev, experts=experts)
         print(f"== serving {cfg.name} with weights from {args.weights}")
     else:
-        params = init_model(cfg, seed=args.seed, device=args.device,
+        params = init_model(cfg, seed=args.seed, device=dev,
                             experts=experts)
         print(f"== serving {cfg.name} ({cfg.n_layers} layers, "
               f"d_model {cfg.d_model}) with random weights, seed "
               f"{args.seed}")
+    if train_steps:
+        print(f"== training {cfg.name} for {train_steps} steps (so routing "
+              "has real structure)")
+        params, _, hist = train_loop(cfg, train_steps, 8, 64, corpus=corpus,
+                                     seed=args.seed, device=dev,
+                                     params=params)
+        print(f"   ce {hist[0]:.2f} -> {hist[-1]:.2f}")
+        if host_experts:
+            params = tree_map_with_path(
+                lambda p, t: host_empty(t.shape, t.dtype, dev).copy_(t)
+                if is_expert_leaf(p) else t, params)
 
     policy = "none" if args.no_dali else args.policy
     dali_cfg = None
-    res_vecs = None
-    if cfg.moe is not None and policy != "none" and experts == "device":
-        print("== calibrating residual vectors (paper Eq. 11)")
-        rng = np.random.default_rng(args.seed + 1)
-        calib = np.stack([corpus.sample(rng, args.prompt_len)
-                          for _ in range(8)])
-        tr = capture_decode_trace(params, cfg, calib, n_decode=16,
-                                  device=args.device)
-        res_vecs = np.stack(calibrate_residuals([tr]))
     if cfg.moe is not None and policy != "none":
         dali_cfg = default_dali_config(cfg, cache_ratio=args.cache_ratio)
 
-    def serve_once(offload):
-        spec = ServeSpec(cfg=cfg, server=args.server, policy=policy,
+    def resolve(offload):
+        return ServeSpec(cfg=cfg, server=args.server, policy=policy,
                          dali_cfg=dali_cfg, batch_size=args.batch,
                          max_len=args.prompt_len + args.max_new + 2,
                          offload=OffloadSpec(mode=offload),
-                         device=args.device)
-        server = spec.resolve(params).server(res_vecs=res_vecs)
+                         device=dev).resolve(params)
+
+    rs = resolve(args.offload)
+    res_vecs = None
+    if dali_cfg is not None:
+        print("== calibrating residual vectors (paper Eq. 11)"
+              + (" through the slot pool" if rs.store is not None else ""))
+        rng = np.random.default_rng(args.seed + 1)
+        calib = np.stack([corpus.sample(rng, args.prompt_len)
+                          for _ in range(8)])
+        off = (rs.init_state()["offload"] if rs.store is not None
+               else None)
+        tr = capture_decode_trace(rs.params, cfg, calib, n_decode=16,
+                                  device=dev, store=rs.store, off=off)
+        res_vecs = np.stack(calibrate_residuals([tr]))
+        if rs.store is not None:
+            del off
+            rs.store.reset_stats()
+
+    def serve_once(rs):
+        server = rs.server(res_vecs=res_vecs)
         rng = np.random.default_rng(args.seed + 2)
         for i in range(args.requests):
             server.submit(Request(rid=i,
@@ -130,7 +177,7 @@ def main(argv=None):
                                   max_new_tokens=args.max_new))
         return server, server.run()
 
-    server, done = serve_once(args.offload)
+    server, done = serve_once(rs)
     lat = [r.latency for r in done]
     ttft = [r.ttft for r in done if r.first_token_at]
     print(f"== served {len(done)} requests via {args.server} "
@@ -151,7 +198,7 @@ def main(argv=None):
     if args.check_exact:
         print("== --check-exact: re-serving the same requests "
               "full-resident (modeled)")
-        _, ref = serve_once("modeled")
+        _, ref = serve_once(resolve("modeled"))
         by_rid = {r.rid: r.output for r in ref}
         bad = [r.rid for r in done if r.output != by_rid.get(r.rid)]
         if bad:

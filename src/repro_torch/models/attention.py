@@ -35,9 +35,10 @@ NEG_INF = -1e30
 def init_attention(gen, cfg: ModelConfig, device, kind: str = "attn"):
     a = cfg.attn
     if a.mla is not None or kind == "cross" or a.qk_norm:
-        raise NotImplementedError("MLA, cross-attention and qk-norm are "
-                                  "ported with their architectures "
-                                  "(ROADMAP.md modules 11 and 14)")
+        raise NotImplementedError(
+            "MLA, cross-attention and qk-norm are ported with their "
+            "architectures (ROADMAP.md queue 1, \"The paper's other "
+            "evaluation models\" and \"Remaining architectures\")")
     d, hd, dt = cfg.d_model, cfg.head_dim(), cfg.param_dtype
     return {
         "wq": dense_init(gen, (d, a.n_heads * hd), dt, device),

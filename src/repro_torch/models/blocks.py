@@ -26,7 +26,8 @@ def _check_kinds(cfg: ModelConfig, kinds):
             or cfg.post_block_norm:
         raise NotImplementedError(
             f"block {kinds} (post_block_norm={cfg.post_block_norm}) is ported "
-            "with the remaining architectures (ROADMAP.md module 14)")
+            "with the remaining architectures (ROADMAP.md queue 1, "
+            "\"Remaining architectures\")")
 
 
 def init_block(gen, cfg: ModelConfig, kinds, device):

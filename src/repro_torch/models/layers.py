@@ -110,7 +110,9 @@ def init_embedding(gen, cfg: ModelConfig, device):
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    x = params["tok"][tokens.long()].to(torch_dtype(cfg.dtype))
+    # F.embedding, not indexing: its backward on the CPU is deterministic
+    # (indexing's scatters with a nondeterministic accumulation order)
+    x = F.embedding(tokens.long(), params["tok"]).to(torch_dtype(cfg.dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     return x

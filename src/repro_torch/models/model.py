@@ -81,8 +81,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     the card is never held there whole."""
     dev = resolve_device(device)
     if cfg.encoder is not None:
-        raise NotImplementedError("encoder-decoder models are ported later "
-                                  "(ROADMAP.md module 14)")
+        raise NotImplementedError(
+            "encoder-decoder models are ported later (ROADMAP.md queue 1, "
+            "\"Remaining architectures\")")
     host = experts_on_host(experts)
 
     def block(kinds):
@@ -200,6 +201,24 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
 # --------------------------------------------------------------------------
 # info reduction helpers (layer order: prefix, then super-block-major)
 # --------------------------------------------------------------------------
+
+def collect_moe_scalars(infos):
+    """Sum the aux / z losses and the drops over every MoE block (prefix and
+    scanned stacks), in the reference's order (0-d CPU zeros without MoE
+    blocks; they add to a tensor on any device)."""
+    aux = z = torch.zeros((), dtype=torch.float32)
+    dropped = torch.zeros((), dtype=torch.int32)
+    for info in infos:
+        if info is None:
+            continue
+        subs = [s for s in info if s is not None] \
+            if isinstance(info, tuple) else [info]
+        for sub in subs:
+            aux = aux + sub["aux_loss"].sum()
+            z = z + sub["z_loss"].sum()
+            dropped = dropped + sub["dropped"].sum().to(torch.int32)
+    return {"aux_loss": aux, "z_loss": z, "dropped": dropped}
+
 
 def collect_field(infos, field):
     """Stack a per-MoE-layer info field -> (n_moe_layers, ...) in true layer

@@ -79,8 +79,9 @@ def use_sparse_path(m: MoEConfig, n_tokens: int,
 def init_moe(gen, cfg: ModelConfig, device):
     m = cfg.moe
     if m.n_shared:
-        raise NotImplementedError("shared experts are ported with "
-                                  "deepseek-v2-lite (ROADMAP.md module 11)")
+        raise NotImplementedError(
+            "shared experts are ported with deepseek-v2-lite (ROADMAP.md "
+            "queue 1, \"The paper's other evaluation models\")")
     d = cfg.d_model
     de = m.d_expert or cfg.d_ff
     dt = cfg.param_dtype
@@ -289,7 +290,8 @@ def apply_moe(params, x, cfg: ModelConfig, *,
     if T > MOE_CHUNK_TOKENS:
         raise NotImplementedError(
             f"{T} tokens exceed MOE_CHUNK_TOKENS={MOE_CHUNK_TOKENS}; chunked "
-            "execution is ported later (ROADMAP.md, MOE_CHUNK_TOKENS item)")
+            "execution is ported later (ROADMAP.md queue 1, "
+            "\"MOE_CHUNK_TOKENS chunking\")")
     E, K = m.n_routed, m.top_k
     xf = x.reshape(T, d)
 

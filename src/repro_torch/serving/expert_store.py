@@ -240,6 +240,12 @@ class ExpertStore:
         self._drained = dict(self._tel)
         return out
 
+    def reset_stats(self):
+        """Zero every counter (after a calibration run through the store, so
+        that a server built on it counts its own serve only)."""
+        self._tel = {k: 0 for k in self._tel}
+        self._drained = dict(self._tel)
+
     # -- device state --------------------------------------------------------
 
     def _side(self):

@@ -1,0 +1,89 @@
+"""Loss and train-step builders (port of ``repro/training/train_step.py``).
+
+Loss = token cross-entropy (float32 logits) + logit z-loss + the MoE
+auxiliary load-balance loss + the router z-loss, collected from every MoE
+block.  ``make_train_step`` returns ``train_step(params, opt_state, batch)
+-> (params', opt_state', metrics)``: gradients of every param leaf by
+``torch.autograd.grad`` (on the card through the kernels' autograd
+Functions, whose backward recomputes through the plain versions), then one
+AdamW step applied in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import apply_model, collect_moe_scalars
+from repro_torch.training.optimizer import OptConfig, adamw_update
+from repro_torch.tree import tree_leaves, tree_map
+
+CROSS_SRC = ("cross-attention sources (VLM / audio) are ported with their "
+             "architectures (ROADMAP.md queue 1, \"Remaining "
+             "architectures\")")
+
+
+def cross_entropy(logits, labels, z_weight: float = 1e-4):
+    """logits (B, S, V) float32, labels (B, S) int (-1 = masked) ->
+    (ce + z_weight * mean lse^2, ce)."""
+    V = logits.shape[-1]
+    mask = (labels >= 0).to(torch.float32)
+    lbl = labels.clamp(0, V - 1).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lbl[..., None])[..., 0] - lse
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = -(ll * mask).sum() / denom
+    z = ((lse ** 2) * mask).sum() / denom
+    return ce + z_weight * z, ce
+
+
+def make_loss_fn(cfg: ModelConfig, moe_capacity: Optional[int] = None):
+    def loss_fn(params, batch):
+        if batch.get("cross_src") is not None:
+            raise NotImplementedError(CROSS_SRC)
+        logits, _, infos = apply_model(params, batch["tokens"], cfg,
+                                       moe_capacity=moe_capacity)
+        loss, ce = cross_entropy(logits, batch["labels"])
+        moe = collect_moe_scalars(infos)
+        total = loss + moe["aux_loss"] + moe["z_loss"]
+        metrics = {"loss": total, "ce": ce, "aux": moe["aux_loss"],
+                   "router_z": moe["z_loss"], "dropped": moe["dropped"]}
+        return total, metrics
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` with
+    respect to every param leaf, ``grads`` shaped like ``params`` (zeros
+    for a leaf the loss does not reach).  The leaves require grad only for
+    the call, so the caller's tensors come back as they were."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        total, metrics = loss_fn(params, batch)
+        flat = torch.autograd.grad(total, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    flat = iter([torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, flat)])
+    grads = tree_map(lambda _: next(flat), params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (total.detach(), metrics), grads
+
+
+def make_train_step(cfg: ModelConfig, oc: OptConfig,
+                    moe_capacity: Optional[int] = None):
+    loss_fn = make_loss_fn(cfg, moe_capacity)
+
+    def train_step(params, opt_state, batch):
+        (_, metrics), grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state, opt_metrics = adamw_update(params, grads,
+                                                      opt_state, oc)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step

@@ -448,3 +448,112 @@ def test_sampled_decode_on_the_card_is_deterministic(cuda):
         a, b = serve(server, True), serve(server, True)
         assert a == b, server
         assert a != serve(server, False), server
+
+
+# --------------------------------------------------------------------------
+# autograd through the kernels (training): each Function against the plain
+# version's own autograd on the card, at phase 9's training shapes
+# --------------------------------------------------------------------------
+
+def _leaf(t):
+    return t.detach().requires_grad_()
+
+
+def test_gating_function_matches_plain_autograd(cuda):
+    """K1 at the training batch (T = 8 x 128, Mixtral's router)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    lg = _leaf(torch.randn((1024, 8), generator=gen, device=cuda) * 2)
+    gg = torch.randn((1024, 2), generator=gen, device=cuda)
+    gp = torch.randn((1024, 8), generator=gen, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    g1, i1, p1 = gating(lg, 2, "topk_softmax", True)
+    (d1,) = torch.autograd.grad((g1, p1), lg, (gg, gp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gating"] == before["gating"] + 1
+    assert kernels.LAUNCHES["gating_bwd"] == before["gating_bwd"] + 1
+    assert not i1.requires_grad
+    ref = _leaf(lg)
+    g2, i2, p2 = gating_plain(ref, 2, "topk_softmax", True)
+    (d2,) = torch.autograd.grad((g2, p2), ref, (gg, gp))
+    assert torch.equal(i1, i2)
+    assert _rel_err(d1, d2) < BF16_TOL
+
+
+@pytest.mark.parametrize("form", ["ragged", "grouped"])
+def test_expert_ffn_function_matches_plain_autograd(cuda, form):
+    """K2 at the training bucket: Mixtral's experts, C = 320 (T = 1024)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    E, C, d, f = 8, 320, 4096, 14336
+    bf = lambda *s, sc=1.0: (torch.randn(s, generator=gen, device=cuda)
+                             * sc).bfloat16()
+    xe = _leaf(bf(E, C, d))
+    ws = [_leaf(bf(E, d, f, sc=d ** -0.5)), _leaf(bf(E, d, f, sc=d ** -0.5)),
+          _leaf(bf(E, f, d, sc=f ** -0.5))]
+    counts = torch.tensor([320, 0, 17, 256, 300, 1, 64, 200],
+                          dtype=torch.int32, device=cuda)
+    eids = (torch.tensor([3, 3, 0, 7, 1, 2, 6, 5], dtype=torch.int32,
+                         device=cuda) if form == "grouped" else None)
+    gy = bf(E, C, d)
+    key = "expert_ffn_" + form
+    before = dict(kernels.LAUNCHES)
+    y = expert_ffn(xe, *ws, counts=counts, expert_ids=eids)
+    g1 = torch.autograd.grad(y, [xe, *ws], gy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before[key] + 1
+    assert kernels.LAUNCHES["expert_ffn_bwd"] == before["expert_ffn_bwd"] + 1
+    ins = [_leaf(t) for t in (xe, *ws)]
+    r = expert_ffn_plain(*ins, counts=counts, expert_ids=eids)
+    g2 = torch.autograd.grad(r, ins, gy)
+    assert _rel_err(y, r) < BF16_TOL
+    for a, b in zip(g1, g2):
+        assert _rel_err(a, b) < BF16_TOL
+
+
+def test_flash_attention_function_matches_plain_autograd(cuda):
+    """K3 at the training batch: B = 8, S = 128, Mixtral's heads."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    bf = lambda *s: torch.randn(s, generator=gen, device=cuda).bfloat16()
+    q, k, v = _leaf(bf(8, 128, 32, 128)), _leaf(bf(8, 128, 8, 128)), \
+        _leaf(bf(8, 128, 8, 128))
+    go = bf(8, 128, 32, 128)
+    before = dict(kernels.LAUNCHES)
+    o = flash_attention(q, k, v, causal=True)
+    g1 = torch.autograd.grad(o, [q, k, v], go)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    ins = [_leaf(t) for t in (q, k, v)]
+    r = flash_attention_plain(*ins, causal=True)
+    g2 = torch.autograd.grad(r, ins, go)
+    assert _rel_err(o, r) < BF16_TOL
+    for a, b in zip(g1, g2):
+        assert _rel_err(a, b) < BF16_TOL
+
+
+def test_train_step_on_the_card_gives_every_leaf_a_gradient(cuda):
+    """A bfloat16 smoke Mixtral's gradients through the kernels: every
+    kernel and every backward recompute ran, and every leaf has a finite,
+    non-zero gradient (``chip_smoke.py`` phase 9 holds them to the CPU's)."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.data.pipeline import MarkovCorpus, batches
+    from repro_torch.models.model import init_model
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    params = init_model(cfg, seed=4, device=cuda)
+    b = next(iter(batches(MarkovCorpus(vocab=cfg.vocab, seed=4), 2, 32, 1)))
+    kernels.reset_launch_counts()
+    (loss, m), grads = value_and_grad(
+        make_loss_fn(cfg), params,
+        {k: torch.as_tensor(v, device=cuda) for k, v in b.items()})
+    torch.cuda.synchronize()
+    for key in ("gating", "expert_ffn_ragged", "flash_attention",
+                "gating_bwd", "expert_ffn_bwd", "flash_attention_bwd"):
+        assert kernels.LAUNCHES[key] > 0, key
+    assert bool(torch.isfinite(loss))
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    assert not any(p.requires_grad for p in tree_leaves(params))

@@ -420,6 +420,7 @@ def test_launcher_check_exact_passes_in_every_mode():
     for mode in MODES:
         server, done = serve.main([
             "--device", "cpu", "--dtype", "float32", "--layers", "2",
+            "--train-steps", "2",
             "--offload", mode, "--check-exact", "--cache-ratio", "0.25",
             "--requests", "3", "--batch", "2", "--prompt-len", "10",
             "--max-new", "4"])

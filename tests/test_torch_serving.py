@@ -411,6 +411,7 @@ def test_weights_carried_through_npz_serve_the_same(model, tmp_path):
     from repro_torch.launch import serve
     server, done = serve.main(["--device", "cpu", "--dtype", "float32",
                                "--layers", "2", "--weights", str(path),
+                               "--train-steps", "0",
                                "--requests", "2", "--batch", "2",
                                "--prompt-len", "8", "--max-new", "3"])
     assert len(done) == 2 and all(len(r.output) >= 1 for r in done)
