@@ -55,23 +55,24 @@ outside a checkout.  Phases (any failure exits non-zero):
    param leaf must get a finite, non-zero gradient and K1, K2 ragged, K3
    and their three backward recomputes must have run (counts read on
    their own); per step the loss, grad norm, step time and peak device
-   memory; then each backward recompute timed beside one PyTorch autograd
-   call of the same function.  (b) one step's gradients of a small
-   bfloat16 model on the card against the same step on the CPU (plain
-   versions): every leaf within 3e-2 relative to max |ref|, ce / aux /
-   router_z within 3e-2, drops exact.  (c) the launcher's path: the smoke
-   Mixtral at 4 layers trained 120 steps as ``repro/launch/serve.py``
-   trains it (ce must fall), residual vectors calibrated full-resident
-   and through the ``pipelined`` slot pool (bit-equal), then batch-2
-   requests served full-resident and offloaded with them (identical
-   tokens).
+   memory; then one more step through ``make_train_step`` under
+   ``torch.profiler``, and each backward recompute timed beside one
+   PyTorch autograd call of the same function.  (b) one step's
+   gradients of a small bfloat16 model on the card against the same step
+   on the CPU (plain versions): every leaf within 3e-2 relative to max
+   |ref|, ce / aux / router_z within 3e-2, drops exact.  (c) the
+   launcher's path: the smoke Mixtral at 4 layers trained 120 steps as
+   ``repro/launch/serve.py`` trains it (ce must fall), residual vectors
+   calibrated full-resident and through the ``pipelined`` slot pool
+   (bit-equal), then batch-2 requests served full-resident and offloaded
+   with them (identical tokens).
 
-Phase 3 also times K3 and K2 ragged at phase 7's wave shapes and K2
-ragged at phase 9's training bucket (C = 320) and the continuous
-server's 512-token admission bucket (C = 160).  Phase 6's full-depth
-serve calibrates its residual vectors through the slot pool.  The
-second-to-last line is the ``kernels`` JSON object, the last line
-``{"ok": true, "device": {...}}``.
+Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
+and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
+S = 128; C = 320), and K2 ragged at the continuous server's 512-token
+admission bucket (C = 160).  Phase 6's full-depth serve calibrates its
+residual vectors through the slot pool.  The second-to-last line is the
+``kernels`` JSON object, the last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -246,11 +247,14 @@ def kernel_phase(torch, cfg, wave_S):
     # then off the path the row variant at width 16 (Jamba's router) and
     # the warp variant (DeepSeek-V2-Lite's and Qwen3-30B-A3B's routers)
     from repro_torch.kernels.gating.ops import LAUNCH_KEY, launch_floor, plan
-    k1_cases = [(T, E, K, m.router_type, m.renormalize, "")
+    k1_cases = [("", T, E, K, m.router_type, m.renormalize, "")
                 for T in (2, 8, 256)]
-    k1_cases += [(256, e, k, "softmax_topk", True, " off the path")
+    # phase 9's training batch (8 x 128 tokens)
+    k1_cases.append(("train ", TRAIN_BATCH * TRAIN_SEQ, E, K, m.router_type,
+                     m.renormalize, ""))
+    k1_cases += [("", 256, e, k, "softmax_topk", True, " off the path")
                  for e, k in ((16, 2), (64, 6), (128, 8))]
-    for T, e, k, rt, rn, note in k1_cases:
+    for tag, T, e, k, rt, rn, note in k1_cases:
         variant, width = plan(e, k)
         floor = (device_ms(torch, lambda: launch_floor(T, e, k)),
                  cuda_ms(torch, lambda: launch_floor(T, e, k)))
@@ -268,7 +272,8 @@ def kernel_phase(torch, cfg, wave_S):
         else:
             lib = lambda: torch.topk(torch.softmax(lg, -1), k)
         cut = f"row W={width}" if variant == "row" else f"warp {width}/lane"
-        record(LAUNCH_KEY[variant], f"T={T} E={e} k={k} {rt} {cut}{note}",
+        record(LAUNCH_KEY[variant],
+               f"{tag}T={T} E={e} k={k} {rt} {cut}{note}",
                err, ok, lambda: gating(lg, k, rt, rn),
                lambda: gating_plain(lg, k, rt, rn), lib,
                bound(nbytes, T * e * (k + 4), F32_FLOP_S))
@@ -377,7 +382,10 @@ def kernel_phase(torch, cfg, wave_S):
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
     Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
-    for B, S in ((1, 128), (1, 256), (1, 512), (WAVE_BATCH, wave_S)):
+    # prefill buckets, phase 7's wave and phase 9's training batch
+    for tag, B, S in (("", 1, 128), ("", 1, 256), ("", 1, 512),
+                      ("wave ", WAVE_BATCH, wave_S),
+                      ("train ", TRAIN_BATCH, TRAIN_SEQ)):
         q = torch.randn((B, S, Hq, D), generator=gen, device=dev).bfloat16()
         k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
         v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
@@ -388,9 +396,8 @@ def kernel_phase(torch, cfg, wave_S):
         ok = rel_err(o, r) < BF16_TOL
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2
-        wave = "wave " if B > 1 else ""
         record("flash_attention",
-               f"{wave}B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok,
+               f"{tag}B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal", err, ok,
                lambda: flash_attention(q, k, v, causal=True),
                lambda: flash_attention_plain(q, k, v, causal=True),
                lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1162,7 +1169,9 @@ def train_full_width(torch, kernels, name):
     from repro_torch.models.model import init_model
     from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                                 init_adamw)
-    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.training.train_step import (make_loss_fn,
+                                                 make_train_step,
+                                                 value_and_grad)
     from repro_torch.tree import tree_leaves
 
     full = get_config("mixtral-8x7b")
@@ -1172,11 +1181,13 @@ def train_full_width(torch, kernels, name):
     opt = init_adamw(params)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
+    pbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     print(f"train (a): {cfg.name} at published widths, depth cut from "
           f"{full.n_layers} to {cfg.n_layers} layers, {n / 1e9:.3f} G "
-          f"params in {cfg.param_dtype}, random from seed 0; params + "
-          f"gradients + AdamW moments {training_bytes(cfg) / 1e9:.1f} GB; "
-          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"params in {cfg.param_dtype}, random from seed 0; params "
+          f"{pbytes / 1e9:.1f} GB + gradients and AdamW moments "
+          f"{training_bytes(params) / 1e9:.1f} GB; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # warmup as train_loop sets it: min(50, steps // 10 + 1)
     oc = OptConfig(lr=1e-4, warmup_steps=min(50, TRAIN_STEPS // 10 + 1),
                    total_steps=TRAIN_STEPS)
@@ -1192,13 +1203,14 @@ def train_full_width(torch, kernels, name):
         ev[0].record()
         (_, m), grads = value_and_grad(loss_fn, params, batch)
         ev[1].record()
-        # every leaf: a finite, non-zero gradient
-        bad = [j for j, g in enumerate(tree_leaves(grads))
-               if not (bool(torch.isfinite(g).all())
-                       and float(g.abs().max()) > 0)]
         params, opt, om = adamw_update(params, grads, opt, oc)
         ev[2].record()
         ev[2].synchronize()
+        # every leaf: a finite, non-zero gradient (AdamW reads the
+        # gradients and leaves them as they were)
+        bad = [j for j, g in enumerate(tree_leaves(grads))
+               if not (bool(torch.isfinite(g).all())
+                       and float(g.abs().max()) > 0)]
         del grads
         fb, upd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
         fin = all(bool(torch.isfinite(v)) for v in m.values()) and bool(
@@ -1209,8 +1221,8 @@ def train_full_width(torch, kernels, name):
               f"{float(m['router_z']):.5f} dropped {int(m['dropped'])} "
               f"grad_norm {float(om['grad_norm']):.4f} lr "
               f"{float(om['lr']):.2e} | step {fb + upd:.1f} ms (forward + "
-              f"backward {fb:.1f} ms, AdamW {upd:.1f} ms, CUDA events, the "
-              f"leaf check between them excluded) | peak device memory "
+              f"backward {fb:.1f} ms, AdamW {upd:.1f} ms, CUDA events; the "
+              f"leaf check runs after them) | peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | leaves "
               f"without a finite non-zero gradient: {bad or 'none'} | on "
               f"{name}", flush=True)
@@ -1220,9 +1232,10 @@ def train_full_width(torch, kernels, name):
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
         batches(corpus, TRAIN_BATCH, TRAIN_SEQ, 1, seed=1))).items()}
 
+    train_step = make_train_step(cfg, oc)
+
     def one_step():
-        (_, _), grads = value_and_grad(loss_fn, params, batch)
-        adamw_update(params, grads, opt, oc)
+        train_step(params, opt, batch)
 
     busy, wall_us, groups, by_name = device_breakdown(torch, one_step)
     print(f"profile train step (full width, {cfg.n_layers} layers, batch "

@@ -35,3 +35,18 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def recompute_grads(key, plain_fn, inputs, needs, grad_out, n_rest):
+    """The backward of a kernel's autograd Function: recompute ``plain_fn``
+    on the saved ``inputs`` under ``enable_grad`` and differentiate it.
+    Returns one gradient per input (``None`` where ``needs`` is false), then
+    ``n_rest`` ``None`` for the Function's other arguments, and adds one to
+    ``LAUNCHES[key]``."""
+    import torch
+    LAUNCHES[key] += 1
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        grads = iter(torch.autograd.grad(
+            plain_fn(*ins), [t for t, n in zip(ins, needs) if n], grad_out))
+    return tuple(next(grads) if n else None for n in needs) + (None,) * n_rest

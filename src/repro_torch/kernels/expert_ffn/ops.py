@@ -99,16 +99,10 @@ class ExpertFFNFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         xe, wg, wu, wd, counts, expert_ids = ctx.saved_tensors
-        kernels.LAUNCHES["expert_ffn_bwd"] += 1
-        need = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip((xe, wg, wu, wd), need)]
-            y = expert_ffn_plain(*ins, counts, expert_ids, ctx.act)
-            grads = iter(torch.autograd.grad(
-                y, [t for t, n in zip(ins, need) if n], gy))
-        return tuple(next(grads) if n else None for n in need) \
-            + (None, None, None)
+        return kernels.recompute_grads(
+            "expert_ffn_bwd",
+            lambda *w: expert_ffn_plain(*w, counts, expert_ids, ctx.act),
+            (xe, wg, wu, wd), ctx.needs_input_grad[:4], gy, 3)
 
 
 def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,

@@ -110,13 +110,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, go):
-        kernels.LAUNCHES["flash_attention_bwd"] += 1
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            o = flash_attention_plain(*ins, **ctx.opts)
-            grads = iter(torch.autograd.grad(
-                o, [t for t, n in zip(ins, need) if n], go))
-        return tuple(next(grads) if n else None for n in need) \
-            + (None,) * 4
+        return kernels.recompute_grads(
+            "flash_attention_bwd",
+            lambda *qkv: flash_attention_plain(*qkv, **ctx.opts),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], go, 4)

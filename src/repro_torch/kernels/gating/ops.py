@@ -112,14 +112,15 @@ class GatingFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_gates, g_idx, g_probs):
         logits, idx = ctx.saved_tensors
-        kernels.LAUNCHES["gating_bwd"] += 1
-        with torch.enable_grad():
-            x = logits.detach().requires_grad_()
+
+        def plain(x):
             xf = x.float()
             probs = _probs(xf, ctx.router[0])
-            gates = _gates(xf, probs, idx, *ctx.router)
-            (dx,) = torch.autograd.grad((gates, probs), x, (g_gates, g_probs))
-        return dx, None, None, None
+            return _gates(xf, probs, idx, *ctx.router), probs
+
+        return kernels.recompute_grads("gating_bwd", plain, (logits,),
+                                       ctx.needs_input_grad[:1],
+                                       (g_gates, g_probs), 3)
 
 
 def gating(logits, top_k: int, router_type: str = "softmax_topk",

@@ -16,10 +16,11 @@ from the corpus and prints the server's metrics, the DALI telemetry and
 latency percentiles.  ``--scale smoke`` (default) serves the JAX
 launcher's model, the smoke variant at ``--layers`` layers, trained 120
 steps by default; ``--scale full`` serves the published widths at
-``--layers`` layers, untrained by default (a non-zero ``--train-steps``
-there first checks that the params, their gradients and the AdamW
-moments fit on the card).  It runs on ``cuda`` unless ``--device cpu`` is
-given; the CUDA kernels take bfloat16, so ``--dtype`` defaults to it.
+``--layers`` layers, untrained by default (with a non-zero
+``--train-steps`` it first checks that the gradients and the AdamW
+moments fit on the card beside the params it built).  It runs on
+``cuda`` unless ``--device cpu`` is given; the CUDA kernels take
+bfloat16, so ``--dtype`` defaults to it.
 
 ``--offload`` picks how the policy's decisions reach the card: "modeled"
 (every expert resident, decisions feed telemetry only) or "blocking",
@@ -104,14 +105,6 @@ def main(argv=None):
         raise SystemExit("--check-exact needs a physical --offload (it "
                          "compares the run against the full-resident one)")
     dev = resolve_device(args.device)
-    if train_steps and dev.type == "cuda":
-        need, total = training_bytes(cfg), torch.cuda.mem_get_info(dev)[1]
-        if need > total:
-            raise SystemExit(
-                f"training {cfg.name} at {cfg.n_layers} layers needs "
-                f"{need / 1e9:.1f} GB of params, gradients and AdamW "
-                f"moments; the card has {total / 1e9:.1f} GB (pass "
-                "--train-steps 0 or fewer --layers)")
     corpus = MarkovCorpus(vocab=cfg.vocab, seed=args.seed)
     # a physical store reads the experts from the host: draw them there,
     # unless training or the full-resident reference run needs them on
@@ -127,6 +120,14 @@ def main(argv=None):
         print(f"== serving {cfg.name} ({cfg.n_layers} layers, "
               f"d_model {cfg.d_model}) with random weights, seed "
               f"{args.seed}")
+    if train_steps and dev.type == "cuda":
+        need, free = training_bytes(params), torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            raise SystemExit(
+                f"training {cfg.name} at {cfg.n_layers} layers needs "
+                f"{need / 1e9:.1f} GB for gradients and AdamW moments "
+                f"beside its params; the card has {free / 1e9:.1f} GB free "
+                "(pass --train-steps 0 or fewer --layers)")
     if train_steps:
         print(f"== training {cfg.name} for {train_steps} steps (so routing "
               "has real structure)")

@@ -63,31 +63,12 @@ def train_loop(cfg, steps: int, batch: int, seq: int, lr: float = 1e-3,
     return params, opt, history
 
 
-def param_count(cfg) -> int:
-    """Parameters of a model the port builds (attention blocks with a dense
-    or MoE MLP), counted from the config without building it."""
-    from repro_torch.models.config import scan_pattern
-    d, hd, a = cfg.d_model, cfg.head_dim(), cfg.attn
-    attn = d * (a.n_heads + 2 * a.n_kv_heads) * hd + a.n_heads * hd * d
-    norms = 0 if cfg.norm == "nonparam_ln" else 2 * d
-    if cfg.moe is not None:
-        f = cfg.moe.d_expert or cfg.d_ff
-        moe = d * cfg.moe.n_routed + 3 * cfg.moe.n_routed * d * f
-    dense = (3 if cfg.glu else 2) * d * cfg.d_ff
-    prefix, period, n_super = scan_pattern(cfg)
-    kinds = list(prefix) + list(period) * n_super
-    blocks = sum(attn + norms + (moe if mlp == "moe" else dense)
-                 for _, mlp in kinds)
-    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return blocks + embed + (0 if cfg.norm == "nonparam_ln" else d)
-
-
-def training_bytes(cfg) -> int:
-    """Device bytes of training state: params and their gradients in the
-    param dtype, and AdamW's two float32 moments."""
-    from repro_torch.device import torch_dtype
-    size = torch_dtype(cfg.param_dtype).itemsize
-    return param_count(cfg) * (2 * size + 8)
+def training_bytes(params) -> int:
+    """Device bytes that training adds to ``params``: a gradient per leaf
+    in the leaf's dtype and AdamW's two float32 moments."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * (t.element_size() + 8)
+               for t in tree_leaves(params))
 
 
 def main(argv=None):

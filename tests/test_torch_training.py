@@ -337,12 +337,21 @@ def test_train_loop_refuses_cross_attention_sources(model):
 
 
 def test_param_count_and_training_bytes(model):
+    """``training_bytes`` of the params the launcher built is what a step
+    allocates beside them: the gradients and AdamW's two moments."""
     _, tc, jp = model
-    assert ttrain.param_count(tc) == sum(t.numel()
-                                         for t in tree_leaves(_tparams(jp)))
-    full = tconfigs.get_config("mixtral_8x7b").replace(n_layers=2)
-    assert ttrain.param_count(full) == 3_164_688_384
-    assert ttrain.training_bytes(full) == 3_164_688_384 * 12
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tree))
+    n = sum(t.numel() for t in tree_leaves(_tparams(jp)))
+    assert ttrain.training_bytes(_tparams(jp)) == n * (4 + 8)
+    bf = tc.replace(dtype="bfloat16", param_dtype="bfloat16")
+    built = tmodel.init_model(bf, seed=0, device="cpu")
+    assert sum(t.numel() for t in tree_leaves(built)) == n
+    _, grads = tstep.value_and_grad(tstep.make_loss_fn(bf), built,
+                                    _batch(bf, 1, 8)[1])
+    opt = topt.init_adamw(built)
+    assert ttrain.training_bytes(built) == (
+        nbytes(grads) + nbytes(opt["mu"]) + nbytes(opt["nu"]))
 
 
 # --------------------------------------------------------------------------
