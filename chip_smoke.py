@@ -65,13 +65,35 @@ outside a checkout.  Phases (any failure exits non-zero):
    ``repro/launch/serve.py`` trains it (ce must fall), residual vectors
    calibrated full-resident and through the ``pipelined`` slot pool
    (bit-equal), then batch-2 requests served full-resident and offloaded
-   with them (identical tokens).
+   with them (identical tokens);
+10. models — the paper's other two evaluation models, Qwen3-30B-A3B
+   (qk-norm, 128 experts top-8) and DeepSeek-V2-Lite (MLA, one dense
+   first layer, 2 shared experts beside 64 routed top-6), at published
+   widths with random bfloat16 weights from seed 0: (a) the smoke model
+   of each on the card against the CPU as phases 4 and 9 (b) do;
+   (b) 8 layers full-resident (DeepSeek: 1 dense + 7 MoE), residual
+   calibration, then ``dali`` through ``ContinuousBatchServer`` at batch
+   8 (8 x 16 tokens) and batch 2 (4 x 16); K1's warp variant, K2 ragged
+   and grouped and K3 must each have launched (counts zeroed just before
+   and read just after), then one profiled batch-8 window; (c) the
+   batch-2 requests offloaded (pipelined, fetch tier, cache ratio 0.25,
+   calibrated through the slot pool) must give (b)'s tokens, with the
+   routed stacks on the host and the dense prefix FFN and shared experts
+   on the card; (d) every layer of each model (27 and 48), full-resident
+   when it fits beside what the process holds (else pipelined at cache
+   ratio 0.25, printed), 2 requests x 8 tokens at batch 2, with peak
+   device memory and decode rate.
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
 S = 128; C = 320), and K2 ragged at the continuous server's 512-token
-admission bucket (C = 160).  Phase 6's full-depth serve calibrates its
-residual vectors through the slot pool.  The second-to-last line is the
+admission bucket (C = 160), and phase 10's shapes: K1's warp variant at
+E = 128 k = 8 and E = 64 k = 6 (T = 8, 256), K2 ragged over the 256-token
+bucket and grouped over a batch-8 decode at d = 2048, f = 768 / 1408, and
+K3 at Qwen3's GQA (D = 128, G = 8) and DeepSeek-V2-Lite's MLA (D = 192,
+the 128-wide values zero-padded), S = 128..512.  Phase 6's full-depth
+serve calibrates its residual vectors through the slot pool.  Each phase
+prints its seconds.  The second-to-last line is the
 ``kernels`` JSON object, the last line ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -116,6 +138,8 @@ WAVE_BATCH, WAVE_NEW, WAVE_SEED, MAX_LEN = 8, 32, 9, 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 128, 3, 2
 SMOKE_STEPS = 120
 POLICIES = ("static", "all_gpu", "lru", "score", "statistical", "random")
+# phase 10: the paper's other two evaluation models (tag, arch)
+NEW_MODELS = (("qwen3", "qwen3-30b-a3b"), ("deepseek", "deepseek-v2-lite-16b"))
 
 
 def wave_prompts(cfg):
@@ -215,6 +239,7 @@ def kernel_phase(torch, cfg, wave_S):
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.gating.ops import gating, gating_plain
+    from repro_torch.configs import get_config
     from repro_torch.models.moe import expert_capacity
 
     dev = torch.device("cuda")
@@ -244,21 +269,34 @@ def kernel_phase(torch, cfg, wave_S):
     # -- K1: router over T rows of E logits, beside the floor of a kernel
     # that does nothing with the same launch shape (csrc/noop.cu): the
     # path's decode batches 2 and 8 and its 256-token admission bucket,
-    # then off the path the row variant at width 16 (Jamba's router) and
-    # the warp variant (DeepSeek-V2-Lite's and Qwen3-30B-A3B's routers)
+    # off the path the row variant at width 16 (Jamba's router), and the
+    # warp variant at phase 10's routers (DeepSeek-V2-Lite's and
+    # Qwen3-30B-A3B's)
     from repro_torch.kernels.gating.ops import LAUNCH_KEY, launch_floor, plan
-    k1_cases = [("", T, E, K, m.router_type, m.renormalize, "")
+    k1_cases = [("", T, E, K, m.router_type, m.renormalize, "", gen)
                 for T in (2, 8, 256)]
     # phase 9's training batch (8 x 128 tokens)
     k1_cases.append(("train ", TRAIN_BATCH * TRAIN_SEQ, E, K, m.router_type,
-                     m.renormalize, ""))
-    k1_cases += [("", 256, e, k, "softmax_topk", True, " off the path")
-                 for e, k in ((16, 2), (64, 6), (128, 8))]
-    for tag, T, e, k, rt, rn, note in k1_cases:
+                     m.renormalize, "", gen))
+    k1_cases.append(("", 256, 16, 2, "softmax_topk", True, " off the path",
+                     gen))
+    # phase 10's routers: the 256-token admission bucket (drawn from the
+    # stream these rows took before they were on a path, DeepSeek's first,
+    # so every row of earlier phases keeps its inputs), then decode batch 8
+    # (and every later phase-10 row) from a stream of their own
+    gen10 = torch.Generator(device=dev)
+    gen10.manual_seed(10)
+    routers = {tag: get_config(mc).moe for tag, mc in NEW_MODELS}
+    for T, g in ((256, gen), (8, gen10)):
+        k1_cases += [(tag + " ", T, routers[tag].n_routed,
+                      routers[tag].top_k, routers[tag].router_type,
+                      routers[tag].renormalize, "", g)
+                     for tag in ("deepseek", "qwen3")]
+    for tag, T, e, k, rt, rn, note, g in k1_cases:
         variant, width = plan(e, k)
         floor = (device_ms(torch, lambda: launch_floor(T, e, k)),
                  cuda_ms(torch, lambda: launch_floor(T, e, k)))
-        lg = torch.randn((T, e), generator=gen, device=dev) * 2
+        lg = torch.randn((T, e), generator=g, device=dev) * 2
         g1, i1, p1 = gating(lg, k, rt, rn)
         g2, i2, p2 = gating_plain(lg, k, rt, rn)
         torch.cuda.synchronize()
@@ -304,6 +342,7 @@ def kernel_phase(torch, cfg, wave_S):
 
     def ffn_case(name, shape, xe, counts, eids, weights=None):
         wg, wu, wd = weights or ws
+        d, f = wg.shape[1], wg.shape[2]
         y = expert_ffn(xe, wg, wu, wd, counts=counts, expert_ids=eids)
         r = expert_ffn_plain(xe, wg, wu, wd, counts=counts, expert_ids=eids)
         torch.cuda.synchronize()
@@ -379,6 +418,39 @@ def kernel_phase(torch, cfg, wave_S):
              weights=tuple(w[6:8].contiguous() for w in (wg, wu, wd)))
     del wg, wu, wd, ws, xe
 
+    # -- K2 at phase 10's expert widths (d = 2048): the 256-token admission
+    # bucket (ragged) and a batch-8 decode (grouped, one group per (token,
+    # k), ids drawn as top-k routing draws them: distinct within a token,
+    # repeated across tokens; each group reads its expert's weights)
+    for tag, mc in NEW_MODELS:
+        ncfg = get_config(mc)
+        nm = ncfg.moe
+        nE, nK, nd, nf = nm.n_routed, nm.top_k, ncfg.d_model, nm.d_expert
+        nws = tuple((torch.randn(shape, generator=gen10, device=dev)
+                     / math.sqrt(shape[1])).bfloat16()
+                    for shape in ((nE, nd, nf), (nE, nd, nf), (nE, nf, nd)))
+        C = expert_capacity(nm, 256)
+        perm = lambda: torch.randperm(nE, generator=gen10, device=dev)[:nK]
+        idx = torch.stack([perm() for _ in range(256)])
+        counts = torch.bincount(idx.reshape(-1), minlength=nE).to(torch.int32)
+        xe = torch.randn((nE, C, nd), generator=gen10,
+                         device=dev).bfloat16()
+        ffn_case("expert_ffn_ragged", f"{tag} T=256 E={nE} C={C} d={nd} "
+                 f"f={nf}", xe, counts, None, weights=nws)
+        eids = torch.stack([perm() for _ in range(8)]).reshape(-1) \
+            .to(torch.int32)
+        G = eids.numel()
+        distinct = len(set(eids.tolist()))
+        xe = torch.randn((G, 1, nd), generator=gen10, device=dev).bfloat16()
+        ffn_case("expert_ffn_grouped", f"{tag} decode G={G} C=1 d={nd} "
+                 f"f={nf}", xe, torch.ones((G,), dtype=torch.int32,
+                                           device=dev), eids, weights=nws)
+        print(f"kernel expert_ffn_grouped [{tag} decode G={G}]: {distinct} "
+              f"distinct experts of {nE}; the groups read {G} weight sets, "
+              f"{100 * (G / distinct - 1):.1f}% more weight bytes than the "
+              "distinct set (the bound counts the distinct set)", flush=True)
+        del nws, xe
+
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
     Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
@@ -404,6 +476,53 @@ def kernel_phase(torch, cfg, wave_S):
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                bound(B * (2 * S * Hq + 2 * S * Hkv) * D * 2,
                      4.0 * B * Hq * D * pairs, BF16_FLOP_S))
+    # -- K3 at phase 10's prefill shapes: Qwen3's GQA (G = 8, D = 128) and
+    # DeepSeek-V2-Lite's MLA (Hq = Hkv = 16, q/k 192 wide, the 128-wide
+    # values zero-padded to 192 as ``mla_attention`` pads them); the bound
+    # counts the padded inputs, and beside it the bound with 128-wide
+    # values (what the padding costs)
+    for tag, mc in NEW_MODELS:
+        na = get_config(mc).attn
+        if na.mla is not None:
+            nHq = nHkv = na.n_heads
+            nD = na.mla.qk_nope_head_dim + na.mla.qk_rope_head_dim
+            vd = na.mla.v_head_dim
+        else:
+            nHq, nHkv, nD = na.n_heads, na.n_kv_heads, na.head_dim
+            vd = nD
+        for S in (128, 256, 512):
+            q = torch.randn((1, S, nHq, nD), generator=gen10,
+                            device=dev).bfloat16()
+            k = torch.randn((1, S, nHkv, nD), generator=gen10,
+                            device=dev).bfloat16()
+            v = torch.randn((1, S, nHkv, nD), generator=gen10,
+                            device=dev).bfloat16()
+            v[..., vd:] = 0
+            o = flash_attention(q, k, v, causal=True)
+            r = flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = float((o.float() - r.float()).abs().max())
+            ok = rel_err(o, r) < BF16_TOL and not bool(
+                o[..., vd:].float().abs().sum())
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            pairs = S * (S + 1) // 2
+            b = bound(S * (2 * nHq + 2 * nHkv) * nD * 2,
+                      4.0 * nHq * nD * pairs, BF16_FLOP_S)
+            record("flash_attention",
+                   f"{tag} B=1 S={S} Hq={nHq} Hkv={nHkv} D={nD}"
+                   + (f" v {vd} padded" if vd < nD else "") + " causal",
+                   err, ok, lambda: flash_attention(q, k, v, causal=True),
+                   lambda: flash_attention_plain(q, k, v, causal=True),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True), b)
+            if vd < nD:
+                unpadded = bound(S * (nHq + nHkv) * (nD + vd) * 2,
+                                 2.0 * nHq * (nD + vd) * pairs, BF16_FLOP_S)
+                rows[-1]["unpadded_bound_ms"] = unpadded[0]
+                print(f"kernel flash_attention [{tag} S={S}]: bound with "
+                      f"the values {vd} wide {unpadded[0]:.4f} ms "
+                      f"({unpadded[1]}) against {b[0]:.4f} ms padded",
+                      flush=True)
     torch.cuda.empty_cache()
 
     # -- host cost per wrapper call at decode forms; narrow widths so that
@@ -430,16 +549,20 @@ def kernel_phase(torch, cfg, wave_S):
 # phase 4: the port on the card against the port on the CPU, small input
 # --------------------------------------------------------------------------
 
-def reference_phase(torch):
+def reference_phase(torch, arch="mixtral-8x7b"):
+    """The smoke model of ``arch`` at two layers, bfloat16: its MoE layer,
+    its attention (GQA, or MLA) and a whole right-padded admission prefill
+    with two decode steps, on the card against the CPU."""
     from repro_torch.configs import get_config, make_smoke
-    from repro_torch.models.attention import gqa_attention
+    from repro_torch.models.attention import gqa_attention, mla_attention
     from repro_torch.models.model import (apply_model, collect_field,
                                           init_caches, init_model)
     from repro_torch.models.moe import apply_moe
     from repro_torch.tree import tree_map
 
-    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+    cfg = make_smoke(get_config(arch)).replace(
         n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    tag = "" if arch == "mixtral-8x7b" else f"{cfg.name} "
     cpu = init_model(cfg, seed=1, device="cpu")
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     layer = lambda p: tree_map(lambda t: t[0], p["scan"][0])
@@ -451,7 +574,7 @@ def reference_phase(torch):
         ok = (torch.equal(y_gpu, y_cpu) if exact
               else rel_err(y_gpu, y_cpu) < BF16_TOL)
         checks.append(ok)
-        print(f"reference {what}: "
+        print(f"reference {tag}{what}: "
               + ("exact" if exact else f"rel_err={rel_err(y_gpu, y_cpu):.3e}")
               + (" pass" if ok else " FAIL"), flush=True)
 
@@ -466,11 +589,15 @@ def reference_phase(torch):
               exact=True)
     x = torch.randn((1, 20, cfg.d_model), generator=rng).bfloat16()
     pos = torch.arange(20, dtype=torch.int32)
-    y_c, _ = gqa_attention(layer(cpu)["mixer"], x, cfg, kind="attn",
-                           positions=pos)
-    y_g, _ = gqa_attention(layer(gpu)["mixer"], x.cuda(), cfg, kind="attn",
-                           positions=pos.cuda())
-    check("gqa_attention prefill S=20", y_g, y_c)
+    if cfg.attn.mla is not None:
+        attn, what = mla_attention, "mla_attention"
+    else:
+        attn = lambda p, h, c, **kw: gqa_attention(p, h, c, kind="attn",
+                                                   **kw)
+        what = "gqa_attention" + (" qk-norm" if cfg.attn.qk_norm else "")
+    y_c, _ = attn(layer(cpu)["mixer"], x, cfg, positions=pos)
+    y_g, _ = attn(layer(gpu)["mixer"], x.cuda(), cfg, positions=pos.cuda())
+    check(f"{what} prefill S=20", y_g, y_c)
 
     # whole model: right-padded admission prefill then two decode steps,
     # both devices fed the CPU's greedy tokens
@@ -504,7 +631,8 @@ def reference_phase(torch):
         else:
             # a bf16 near-tie routed one token to another expert
             diverged += 1
-            print(f"reference model step {step}: routing diverged between "
+            print(f"reference {tag}model step {step}: routing diverged "
+                  "between "
                   "devices (bf16 near-tie); logits not compared", flush=True)
     if diverged == 3:
         checks.append(False)
@@ -793,13 +921,12 @@ def offload_phase(torch, kernels, name, ctx):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import MarkovCorpus
-    from repro_torch.models.model import (apply_model, host_empty,
+    from repro_torch.models.model import (apply_model, experts_to_host,
                                           init_caches, init_model)
-    from repro_torch.models.moe import is_expert_leaf
     from repro_torch.serving.scheduler import Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
-    from repro_torch.tree import tree_leaves, tree_map_with_path
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     ok = True
@@ -810,9 +937,7 @@ def offload_phase(torch, kernels, name, ctx):
     kernels.reset_launch_counts()          # the offload path starts here
     # (a) -- the experts into pinned host memory once; every store adopts
     t0 = time.perf_counter()
-    host = tree_map_with_path(
-        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
-        if is_expert_leaf(p) else t, params)
+    host = experts_to_host(params, cfg, "cuda")
     print(f"offload: {cfg.n_layers}-layer experts pinned on the host in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     dcfg = default_dali_config(cfg, cache_ratio=0.25)
@@ -953,9 +1078,7 @@ def offload_phase(torch, kernels, name, ctx):
     # host tier: an admission's first-step logits against full-resident's,
     # on the serve phase's 8-layer weights (drawn again from seed 0)
     params = init_model(cfg, seed=0, device="cuda")
-    host = tree_map_with_path(
-        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
-        if is_expert_leaf(p) else t, params)
+    host = experts_to_host(params, cfg, "cuda")
     rs = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg, batch_size=1,
                    max_len=64, offload=OffloadSpec(mode="blocking",
                                                    fallback="host")
@@ -1003,19 +1126,16 @@ def wave_phase(torch, kernels, name, cfg, res_vecs, wave):
     their experts pinned on the host, for phase 8)."""
     import numpy as np
 
-    from repro_torch.models.model import host_empty, init_model
-    from repro_torch.models.moe import expert_capacity, is_expert_leaf
+    from repro_torch.models.model import experts_to_host, init_model
+    from repro_torch.models.moe import expert_capacity
     from repro_torch.serving.scheduler import Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
-    from repro_torch.tree import tree_map_with_path
 
     t_phase = time.perf_counter()
     prompts, S = wave
     params = init_model(cfg, seed=0, device="cuda")
-    host = tree_map_with_path(
-        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
-        if is_expert_leaf(p) else t, params)
+    host = experts_to_host(params, cfg, "cuda")
     dcfg = default_dali_config(cfg, cache_ratio=0.25)
     torch.cuda.synchronize()
     T = WAVE_BATCH * S
@@ -1333,61 +1453,78 @@ def backward_lines(torch, params, cfg, name):
     free(torch)
 
 
-def train_parity(torch, kernels):
+def train_parity(torch, kernels, arch="mixtral-8x7b"):
     """One step's gradients on the card (kernels, autograd Functions)
-    against the same step on the CPU (plain versions), small bfloat16
-    model.  A bfloat16 near-tie can route a token to another expert on one
-    device (phase 4): the routing of the batch is compared first and a
-    batch that routes differently is reported and the next one taken."""
+    against the same step on the CPU (plain versions), the smoke model of
+    ``arch`` at two layers, bfloat16.  A bfloat16 near-tie can route a
+    token to another expert on one device (phase 4), and that token's
+    expert then differs: the CPU step takes the card's routing (its
+    ``idx``, with gates and probs computed on the CPU from its own
+    logits), so both steps differentiate the same function.  How many
+    tokens the CPU's own routing would have sent elsewhere is printed."""
+    import repro_torch.models.moe as moe
     from repro_torch.configs import get_config, make_smoke
     from repro_torch.data.pipeline import MarkovCorpus, batches
-    from repro_torch.models.model import apply_model, collect_field, init_model
+    from repro_torch.kernels.gating.ops import _gates, _probs, gating_plain
+    from repro_torch.models.model import init_model
     from repro_torch.training.train_step import make_loss_fn, value_and_grad
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+    cfg = make_smoke(get_config(arch)).replace(
         n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    tag = "" if arch == "mixtral-8x7b" else f" {cfg.name}"
     cpu = init_model(cfg, seed=1, device="cpu")
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     loss_fn = make_loss_fn(cfg)
-    for attempt, b in enumerate(batches(MarkovCorpus(vocab=cfg.vocab,
-                                                     seed=2), 2, 64, 3,
-                                        seed=2)):
-        bc = {k: torch.as_tensor(v) for k, v in b.items()}
-        bg = {k: t.to("cuda") for k, t in bc.items()}
-        with torch.no_grad():
-            routes = [collect_field(apply_model(p, x["tokens"], cfg,
-                                                trace=True)[2], "topk_idx")
-                      for p, x in ((cpu, bc), (gpu, bg))]
-        if not torch.equal(routes[0], routes[1].cpu()):
-            print(f"train (b) batch {attempt}: routing diverged between "
-                  "devices (bfloat16 near-tie); next batch", flush=True)
-            continue
-        kernels.reset_launch_counts()
-        (_, mc), gc = value_and_grad(loss_fn, cpu, bc)
+    b = next(iter(batches(MarkovCorpus(vocab=cfg.vocab, seed=2), 2, 64, 1,
+                          seed=2)))
+    bc = {k: torch.as_tensor(v) for k, v in b.items()}
+    bg = {k: t.to("cuda") for k, t in bc.items()}
+    real, card_idx, moved = moe.gating, [], []
+
+    def record(logits, *args):
+        out = real(logits, *args)
+        card_idx.append(out[1].detach().cpu())
+        return out
+
+    def card_routing(logits, top_k, router_type, renormalize):
+        own = gating_plain(logits.detach(), top_k, router_type,
+                           renormalize)[1]
+        idx = card_idx[len(moved)]
+        moved.append(int((own.sort(-1).values != idx.sort(-1).values)
+                         .any(-1).sum()))
+        x = logits.float()
+        probs = _probs(x, router_type)
+        return _gates(x, probs, idx, router_type, renormalize), idx, probs
+
+    kernels.reset_launch_counts()
+    try:
+        moe.gating = record
         (_, mg), gg = value_and_grad(loss_fn, gpu, bg)
         torch.cuda.synchronize()
-        bwd = {k: kernels.LAUNCHES[k] for k in
-               ("gating_bwd", "expert_ffn_bwd", "flash_attention_bwd")}
-        errs = [rel_err(g.cpu(), r) for g, r in zip(tree_leaves(gg),
-                                                    tree_leaves(gc))]
-        m_err = {k: rel_err(mg[k].cpu().reshape(1), mc[k].reshape(1))
-                 for k in ("ce", "aux", "router_z")}
-        ok = (max(errs) < BF16_TOL and all(e < BF16_TOL
-                                           for e in m_err.values())
-              and int(mg["dropped"]) == int(mc["dropped"])
-              and all(v > 0 for v in bwd.values()))
-        print(f"train (b): one step's gradients, card (kernels) against CPU "
-              f"(plain), {len(errs)} leaves: max rel_err {max(errs):.3e} "
-              f"(leaf {errs.index(max(errs))}); ce / aux / router_z rel_err "
-              + " / ".join(f"{m_err[k]:.3e}" for k in m_err)
-              + f"; dropped {int(mg['dropped'])} / {int(mc['dropped'])}; "
-              f"backward recomputes {json.dumps(bwd)} | "
-              f"{'pass' if ok else 'FAIL'}", flush=True)
-        return ok
-    print("train (b): every batch routed differently between devices | FAIL",
-          flush=True)
-    return False
+        moe.gating = card_routing
+        (_, mc), gc = value_and_grad(loss_fn, cpu, bc)
+    finally:
+        moe.gating = real
+    bwd = {k: kernels.LAUNCHES[k] for k in
+           ("gating_bwd", "expert_ffn_bwd", "flash_attention_bwd")}
+    errs = [rel_err(g.cpu(), r) for g, r in zip(tree_leaves(gg),
+                                                tree_leaves(gc))]
+    m_err = {k: rel_err(mg[k].cpu().reshape(1), mc[k].reshape(1))
+             for k in ("ce", "aux", "router_z")}
+    ok = (max(errs) < BF16_TOL and all(e < BF16_TOL for e in m_err.values())
+          and int(mg["dropped"]) == int(mc["dropped"])
+          and all(v > 0 for v in bwd.values()))
+    print(f"train (b){tag}: one step's gradients, card (kernels) against "
+          f"CPU (plain) on the card's routing ({sum(moved)} of "
+          f"{len(moved) * b['tokens'].size} (layer, token) rows the CPU "
+          f"would have routed elsewhere), {len(errs)} leaves: max rel_err "
+          f"{max(errs):.3e} (leaf {errs.index(max(errs))}); ce / aux / "
+          "router_z rel_err " + " / ".join(f"{m_err[k]:.3e}" for k in m_err)
+          + f"; dropped {int(mg['dropped'])} / {int(mc['dropped'])}; "
+          f"backward recomputes {json.dumps(bwd)} | "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def train_launcher_path(torch, name):
@@ -1398,11 +1535,9 @@ def train_launcher_path(torch, name):
     from repro_torch.core.tracing import capture_decode_trace
     from repro_torch.data.pipeline import MarkovCorpus
     from repro_torch.launch.train import train_loop
-    from repro_torch.models.model import host_empty
-    from repro_torch.models.moe import is_expert_leaf
+    from repro_torch.models.model import experts_to_host
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
-    from repro_torch.tree import tree_map_with_path
 
     cfg = make_smoke(get_config("mixtral-8x7b")).replace(
         n_layers=4, dtype="bfloat16", param_dtype="bfloat16")
@@ -1422,9 +1557,7 @@ def train_launcher_path(torch, name):
     calib = np.stack([corpus.sample(rng, 32) for _ in range(8)])
     res_full = np.stack(calibrate_residuals([capture_decode_trace(
         params, cfg, calib, n_decode=16)]))
-    host = tree_map_with_path(
-        lambda p, t: host_empty(t.shape, t.dtype, "cuda").copy_(t)
-        if is_expert_leaf(p) else t, params)
+    host = experts_to_host(params, cfg, "cuda")
     dcfg = default_dali_config(cfg, cache_ratio=0.5)
     spec = lambda mode: ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg,
                                   batch_size=2, max_len=256, eos_id=-1,
@@ -1463,6 +1596,256 @@ def train_launcher_path(torch, name):
     return falls and same_res and same
 
 
+# --------------------------------------------------------------------------
+# phase 10: Qwen3-30B-A3B and DeepSeek-V2-Lite
+# --------------------------------------------------------------------------
+
+NEW_MODEL_LAYERS = 8         # (b) and (c): the depth both serve at
+MODEL_PATH_KERNELS = ("gating_warp", "expert_ffn_ragged",
+                      "expert_ffn_grouped", "flash_attention")
+
+
+def models_phase(torch, kernels, name):
+    """(a) the smoke model of each family on the card against the CPU
+    (phase 4) and one training step's gradients (phase 9 (b)); (b) 8
+    layers at published widths, full-resident: residual calibration, then
+    the ``dali`` policy through ``ContinuousBatchServer`` at batch 8 and
+    batch 2, every kernel of the path launched; (c) the batch-2 requests
+    offloaded (pipelined, fetch tier, cache ratio 0.25, calibrated through
+    the slot pool), tokens equal to (b)'s; (d) every layer of each model,
+    full-resident, one after the other.  Returns (ok, launch counts of (b)
+    by model tag)."""
+    t_phase = time.perf_counter()
+    ok, counts, full = True, {}, []
+    for tag, arch in NEW_MODELS:
+        t0 = time.perf_counter()
+        ok_a = reference_phase(torch, arch)
+        ok_a = train_parity(torch, kernels, arch) and ok_a
+        ok_b, counts[tag], ctx = model_serve(torch, kernels, name, arch)
+        ok_c = model_offload(torch, name, ctx)
+        full.append(ctx["full_bytes"])
+        del ctx
+        free(torch)
+        print(f"models {tag}: (a) {'pass' if ok_a else 'FAIL'}, (b) "
+              f"{'pass' if ok_b else 'FAIL'}, (c) "
+              f"{'pass' if ok_c else 'FAIL'} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ok = ok and ok_a and ok_b and ok_c
+    for (tag, arch), nbytes in zip(NEW_MODELS, full):
+        ok = model_full_depth(torch, name, arch, nbytes) and ok
+    print(f"models: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok, counts
+
+
+def model_serve(torch, kernels, name, arch):
+    """(b): 8 layers of ``arch`` full-resident through the continuous
+    server with ``dali``; the launch counters are zeroed just before and
+    read just after."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.residual import calibrate_residuals
+    from repro_torch.core.tracing import capture_decode_trace
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=NEW_MODEL_LAYERS)
+    a, m = cfg.attn, cfg.moe
+    print(f"models: {cfg.name} at published widths (d_model {cfg.d_model}, "
+          f"{m.n_routed} experts top-{m.top_k} of d_ff {m.d_expert}"
+          + (f" + {m.n_shared} shared ({m.d_shared})" if m.n_shared else "")
+          + (f", first {m.first_dense} dense (d_ff {cfg.d_ff})"
+             if m.first_dense else "")
+          + (f", MLA {a.n_heads} heads, latent {a.mla.kv_lora_rank}, q/k "
+             f"{a.mla.qk_nope_head_dim}+{a.mla.qk_rope_head_dim}, v "
+             f"{a.mla.v_head_dim}" if a.mla is not None else
+             f", {a.n_heads}q/{a.n_kv_heads}kv heads of {a.head_dim}"
+             + (" qk-norm" if a.qk_norm else ""))
+          + f", vocab {cfg.vocab}); depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers", flush=True)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tree))
+    n_super = cfg.n_layers - len(params["prefix"])
+    block = nbytes(params["scan"]) / n_super
+    full_bytes = nbytes(params) + (full.n_layers - cfg.n_layers) * block
+    print(f"models {cfg.name}: random weights from seed 0, "
+          f"{nbytes(params) / 1e9:.2f} GB at {cfg.n_layers} layers "
+          f"({full_bytes / 1e9:.2f} GB at {full.n_layers}), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(1)
+    kernels.reset_launch_counts()          # this model's path starts here
+    calib = np.stack([corpus.sample(rng, 32) for _ in range(8)])
+    res_vecs = np.stack(calibrate_residuals([capture_decode_trace(
+        params, cfg, calib, n_decode=8)]))
+    dcfg = default_dali_config(cfg, cache_ratio=0.5)
+    spec = lambda batch: ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg,
+                                   batch_size=batch, max_len=MAX_LEN,
+                                   eos_id=-1)
+    ok, batch2 = True, []
+    for batch, n_req in ((8, 8), (2, 4)):
+        prompts = [corpus.sample(rng, int(rng.integers(24, 201)))
+                   for _ in range(n_req)]
+        server, done, wall = run_requests(
+            torch, spec(batch).resolve(params).server(res_vecs=res_vecs),
+            prompts, 16)
+        mt = server.metrics
+        budget_ok = len(done) == n_req and all(len(r.output) == 16
+                                               for r in done)
+        ok = ok and budget_ok and mt.dali.lookups > 0
+        ttft = [r.ttft for r in done]
+        print(f"models {cfg.name} batch={batch}: {len(done)} requests, "
+              f"{mt.prefill_tokens} prompt tokens, {mt.decode_tokens} decode "
+              f"tokens, {mt.steps} steps in {wall:.2f} s | prefill "
+              f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s, decode "
+              f"{mt.decode_tokens / mt.decode_s:.1f} tok/s, TTFT p50 "
+              f"{np.percentile(ttft, 50) * 1e3:.1f} ms | {mt.dali.summary()} "
+              f"lookups={mt.dali.lookups} | budgets "
+              f"{'ok' if budget_ok else 'FAIL'} | on {name}", flush=True)
+        if batch == 2:
+            got = {r.rid: r.output for r in done}
+            batch2 = [(p, got[i]) for i, p in enumerate(prompts)]
+        del server
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    launched = all(counts[k] > 0 for k in MODEL_PATH_KERNELS)
+    print(f"models {cfg.name}: kernel launches {json.dumps(counts)}; "
+          f"{', '.join(MODEL_PATH_KERNELS)} each launched: {launched}",
+          flush=True)
+    # where the time goes: 8 requests x 8 tokens at batch 8, profiled
+    server = spec(8).resolve(params).server(res_vecs=res_vecs)
+    for i in range(8):
+        server.submit(Request(rid=i, prompt=corpus.sample(
+            rng, int(rng.integers(24, 201))), max_new_tokens=8))
+    profile_window(torch, server, name,
+                   label=f"{cfg.name} {cfg.n_layers} layers batch=8 serve")
+    del server
+    ctx = {"cfg": cfg, "params": params, "calib": calib, "res": res_vecs,
+           "batch2": batch2, "full_bytes": full_bytes}
+    return ok and launched, counts, ctx
+
+
+def model_offload(torch, name, ctx):
+    """(c): (b)'s batch-2 requests offloaded, pipelined with the fetch tier
+    at cache ratio 0.25, residual vectors calibrated through the slot pool
+    (bit-equal to (b)'s): tokens equal to (b)'s; the routed stacks on the
+    host, the dense prefix FFN and the shared experts on the card."""
+    import numpy as np
+
+    from repro_torch.models.model import experts_to_host
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+
+    cfg = ctx["cfg"]
+    host = experts_to_host(ctx.pop("params"), cfg, "cuda")
+    free(torch)
+    rs = ServeSpec(cfg=cfg, policy="dali",
+                   dali_cfg=default_dali_config(cfg, cache_ratio=0.25),
+                   batch_size=2, max_len=MAX_LEN, eos_id=-1,
+                   offload=OffloadSpec(mode="pipelined")).resolve(host)
+    t0 = time.perf_counter()
+    res = slot_res_vecs(rs, cfg, ctx["calib"])
+    same_res = bool(np.array_equal(res, ctx["res"]))
+    print(f"models {cfg.name} offloaded: residual vectors through the slot "
+          f"pool in {time.perf_counter() - t0:.1f} s, bit-equal to the "
+          f"full-resident ones: {same_res}", flush=True)
+    mlp = rs.params["scan"][0]["mlp"]
+    placed = (rs.store.host["gate"].device.type == "cpu"
+              and rs.store.host["gate"].is_pinned()
+              and all(k not in mlp for k in ("gate", "up", "down"))
+              and all(t.is_cuda for p in rs.params["prefix"]
+                      for t in p["mlp"].values())
+              and all(t.is_cuda for t in mlp.get("shared", {}).values()))
+    prompts = [p for p, _ in ctx["batch2"]]
+    server, done, wall = run_requests(torch, rs.server(res_vecs=res),
+                                      prompts, 16)
+    got = {r.rid: r.output for r in done}
+    same = [got.get(i) for i in range(len(prompts))] \
+        == [out for _, out in ctx["batch2"]]
+    lay = server.store.memory_layout()
+    print(f"models {cfg.name} offloaded: pool {lay['pool_bytes'] / 1e9:.2f} "
+          f"GB of {lay['full_resident_bytes'] / 1e9:.2f} GB experts "
+          f"({server.store.n_slots} of {cfg.moe.n_routed} slots per layer); "
+          "routed stacks on the host, dense prefix FFN and shared experts "
+          f"on the card: {placed}", flush=True)
+    st = server.store.stats()
+    offload_line(f"{cfg.name} {cfg.n_layers} layers pipelined fetch "
+                 f"cache_ratio=0.25 batch=2 (tokens "
+                 f"{'identical to' if same else 'DIFFER from'} the "
+                 f"full-resident serve; H2D {st['h2d_bytes'] / 1e9:.2f} GB "
+                 "streamed)", server, done, wall, name)
+    del server, rs, host
+    return same_res and placed and same
+
+
+def model_full_depth(torch, name, arch, full_bytes):
+    """(d): every layer of ``arch`` at published widths, full-resident when
+    its weights fit beside what the card already holds (else pipelined at
+    cache ratio 0.25, said so): 2 requests x 8 tokens at batch 2."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves
+
+    free(torch)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    free_b = torch.cuda.mem_get_info()[0]
+    resident = full_bytes + 4e9 < free_b
+    print(f"models {cfg.name} full depth: {cfg.n_layers} layers, "
+          f"{full_bytes / 1e9:.2f} GB of weights, {free_b / 1e9:.2f} GB "
+          f"free on the card -> "
+          f"{'full-resident' if resident else 'pipelined, cache ratio 0.25'}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda",
+                        experts="device" if resident else "host")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"models {cfg.name} full depth: random weights from seed 0, "
+          f"{weights / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(3)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    prompts = [corpus.sample(rng, int(rng.integers(24, 201)))
+               for _ in range(2)]
+    spec = ServeSpec(cfg=cfg, policy="dali",
+                     dali_cfg=default_dali_config(
+                         cfg, cache_ratio=0.5 if resident else 0.25),
+                     batch_size=2, max_len=MAX_LEN, eos_id=-1,
+                     offload=OffloadSpec(
+                         mode="modeled" if resident else "pipelined"))
+    server, done, wall = run_requests(torch, spec.resolve(params).server(),
+                                      prompts, 8)
+    mt = server.metrics
+    peak = torch.cuda.max_memory_allocated()
+    ok = (len(done) == 2 and all(len(r.output) == 8 for r in done)
+          and (peak < weights if not resident else True))
+    print(f"models {cfg.name} full depth {cfg.n_layers} layers "
+          f"{'full-resident' if resident else 'pipelined'}: {len(done)} "
+          f"requests, {mt.steps} steps in {wall:.2f} s | decode "
+          f"{mt.decode_tokens / mt.decode_s:.1f} tok/s, prefill "
+          f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s | peak device "
+          f"memory {peak / 1e9:.2f} GB | {'pass' if ok else 'FAIL'} | on "
+          f"{name}", flush=True)
+    del server, params
+    free(torch)
+    return ok
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1497,14 +1880,20 @@ def main():
     # -- phase 3: kernels against their plain versions ----------------------
     from repro_torch.configs import get_config
     wave = wave_prompts(get_config("mixtral-8x7b"))
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, get_config("mixtral-8x7b"), wave[1])
     kernels_ok = all(r["ok"] for r in rows)
+    print(f"kernels: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 4: the port on the card against the port on the CPU ----------
+    t0 = time.perf_counter()
     reference_ok = reference_phase(torch)
+    print(f"reference: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 5: serve -----------------------------------------------------
+    t0 = time.perf_counter()
     serve_ok, counts, ctx = serve_phase(torch, kernels, name)
+    print(f"serve: phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"serve: kernel launches {json.dumps(counts)}", flush=True)
     launched_ok = all(counts[k] > 0 for k in (
         "gating", "expert_ffn_ragged", "expert_ffn_grouped",
@@ -1536,13 +1925,18 @@ def main():
     # every phase-9 reading carries the card's name and power limit
     train_ok, train_counts = train_phase(torch, kernels, card)
 
+    # -- phase 10: Qwen3-30B-A3B and DeepSeek-V2-Lite -------------------------
+    models_ok, model_counts = models_phase(torch, kernels, card)
+
     out = []
     for r in rows:
-        # a row at the offload path's or the wave's shapes counts that
-        # path's launches
+        # a row at the offload path's, the wave's, training's or a phase-10
+        # model's shapes counts that path's launches
+        tag = r["shape"].split(" ")[0]
         path = (off_counts if r["shape"].startswith(("pool", "decode miss"))
-                else wave_counts if r["shape"].startswith("wave")
-                else train_counts if r["shape"].startswith("train")
+                else wave_counts if tag == "wave"
+                else train_counts if tag == "train"
+                else model_counts[tag] if tag in model_counts
                 else counts)
         out.append({"name": f"{r['name']} [{r['shape']}]", "route": "cuda",
                     "source": SOURCE[r["name"]],
@@ -1553,6 +1947,8 @@ def main():
                     "launches_wave": wave_counts[r["name"]],
                     "launches_policies": pol_counts[r["name"]],
                     "launches_train": train_counts[r["name"]],
+                    **{f"launches_{t}": c[r["name"]]
+                       for t, c in model_counts.items()},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1560,7 +1956,8 @@ def main():
                     "library_ms": r["library_ms"],
                     "library_device_ms": r["library_device_ms"],
                     **{k: r[k] for k in ("floor_device_ms", "floor_ms",
-                                         "floor_bound_ms") if k in r}})
+                                         "floor_bound_ms",
+                                         "unpadded_bound_ms") if k in r}})
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     failed = [p for p, ok in (("kernels", kernels_ok),
@@ -1570,6 +1967,7 @@ def main():
                               ("wave", wave_ok),
                               ("policies", policies_ok),
                               ("train", train_ok),
+                              ("models", models_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

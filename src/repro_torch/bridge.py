@@ -14,8 +14,9 @@ are ``/``-joined paths, tuple positions written ``#i``), which is how
 the JAX package; ``save_npz`` also takes a tree of tensors, which is how
 the port's checkpoints are written (``repro_torch/checkpoint/store.py``).
 With ``experts="host"`` ``to_torch`` and ``load_npz`` put the routed expert
-stacks in host memory (page-locked when ``device`` is a card) instead of
-on ``device``, for a physical-offload store.  ``adamw_to_torch`` carries a
+stacks of the model ``cfg`` (``models.moe.is_expert_leaf``) in host memory
+(page-locked when ``device`` is a card) instead of on ``device``, for a
+physical-offload store.  ``adamw_to_torch`` carries a
 reference AdamW state (``{"mu", "nu", "step"}``).
 """
 from __future__ import annotations
@@ -39,22 +40,29 @@ def _leaf_to_cpu(a):
     return torch.from_numpy(np.array(a))
 
 
-def _place(path, t, device, host: bool):
-    """A CPU tensor onto ``device``, or into host memory for an expert
-    stack when ``host``."""
-    if host and is_expert_leaf(path):
-        return host_empty(t.shape, t.dtype, device).copy_(t)
-    return t.to(device)
-
-
-def to_torch(tree, device="cuda", experts: str = "device"):
-    """numpy pytree (dict / tuple / list of arrays) -> the same nesting of
-    tensors on ``device`` (expert stacks on the host with
-    ``experts="host"``)."""
-    dev = resolve_device(device)
+def _placer(device, experts: str, cfg):
+    """``place(path, cpu_tensor)``: onto ``device``, or into host memory
+    for a routed expert stack of ``cfg`` when ``experts="host"``."""
     host = experts_on_host(experts)
-    return tree_map_with_path(
-        lambda path, a: _place(path, _leaf_to_cpu(a), dev, host), tree)
+    if host and cfg is None:
+        raise ValueError("experts='host' needs the model's cfg: it decides "
+                         "which leaves are routed expert stacks")
+
+    def place(path, t):
+        if host and is_expert_leaf(path, cfg):
+            return host_empty(t.shape, t.dtype, device).copy_(t)
+        return t.to(device)
+
+    return place
+
+
+def to_torch(tree, device="cuda", experts: str = "device", cfg=None):
+    """numpy pytree (dict / tuple / list of arrays) -> the same nesting of
+    tensors on ``device`` (the routed expert stacks of the model ``cfg`` on
+    the host with ``experts="host"``)."""
+    place = _placer(resolve_device(device), experts, cfg)
+    return tree_map_with_path(lambda path, a: place(path, _leaf_to_cpu(a)),
+                              tree)
 
 
 def adamw_to_torch(state, device="cuda"):
@@ -128,11 +136,11 @@ def save_npz(path, tree):
     np.savez(path, **arrays)
 
 
-def load_npz(path, device="cuda", experts: str = "device"):
+def load_npz(path, device="cuda", experts: str = "device", cfg=None):
     """Read a tree written by :func:`save_npz` as tensors on ``device``
-    (expert stacks on the host with ``experts="host"``)."""
-    dev = resolve_device(device)
-    host = experts_on_host(experts)
+    (the routed expert stacks of the model ``cfg`` on the host with
+    ``experts="host"``)."""
+    place = _placer(resolve_device(device), experts, cfg)
     flat = {}
     with np.load(path) as z:
         for k in z.files:
@@ -142,5 +150,4 @@ def load_npz(path, device="cuda", experts: str = "device"):
                     a.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 flat[k] = torch.from_numpy(a)
-    return tree_map_with_path(lambda p, t: _place(p, t, dev, host),
-                              unflatten(flat))
+    return tree_map_with_path(place, unflatten(flat))

@@ -13,9 +13,10 @@ from typing import List
 
 from repro_torch.models.config import MLAConfig, EncoderConfig, ModelConfig, scan_pattern
 
-# architectures the port has a config module for (later slices add the rest
-# of the JAX package's registry, ROADMAP.md queue 1)
-ARCHS: List[str] = ["mixtral_8x7b"]
+# architectures the port has a config module for: the paper's three
+# evaluation models (later slices add the rest of the JAX package's
+# registry, ROADMAP.md queue 1)
+ARCHS: List[str] = ["mixtral_8x7b", "qwen3_30b_a3b", "deepseek_v2_lite_16b"]
 
 
 def canonical(name: str) -> str:
@@ -26,8 +27,9 @@ def get_config(name: str) -> ModelConfig:
     if canonical(name) not in ARCHS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
-            "\"The paper's other evaluation models\" and \"Remaining "
-            "architectures\"); the port serves: " + ", ".join(ARCHS))
+            "\"Remaining architectures\": dense, cross-attention, "
+            "encoder-decoder, Mamba and hybrid families); the port serves: "
+            + ", ".join(ARCHS))
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.CONFIG
 

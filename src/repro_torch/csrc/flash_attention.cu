@@ -9,15 +9,19 @@
 // microseconds; a call is bound by latency: the chain of 64-key tiles
 // (load, Q K^T, softmax, P V) that the block with the longest causal row
 // walks, plus each block's fixed start and finish, and at S >= 512 by two
-// blocks sharing each SM's tensor cores and special-function units.
+// blocks sharing each SM's tensor cores and special-function units.  The
+// same holds at DeepSeek-V2-Lite's MLA prefill (B = 1, 16 heads, D = 192
+// with the 128-wide values zero-padded, S = 128..512): S / 64 x 16 blocks
+// of one warpgroup each, at most one wave on 132 SMs.
 //
 // Design (in the manner of FlashAttention-3):
 //  * One block per (query tile, batch x kv head): one consumer warpgroup
 //    for 64 rows = (64 / G) positions x the G query heads of one kv head,
 //    so each K/V tile is read once for the G heads, and one producer warp.
-//    Blocks take work longest causal chain first; when the grid is at most
-//    two blocks per SM, the second block of an SM takes the shortest
-//    remaining chain, so no SM runs two long ones.
+//    Blocks take work longest causal chain first; where two blocks share
+//    an SM (D <= 128) and the grid is at most two blocks per SM, the
+//    second block of an SM takes the shortest remaining chain, so no SM
+//    runs two long ones.
 //  * The producer loads Q once and streams 64-key K/V tiles into a
 //    three-stage ring, all by TMA, paced by full/empty mbarriers: the
 //    consumers never issue a load or wait on a block-wide barrier in the
@@ -25,7 +29,10 @@
 //    (BQ positions, G heads, 64 columns), which is the block's 64 rows in
 //    order; K/V's is 3-D over (B, Sk, Hkv * D), so a key past Sk reads
 //    zeros, never the next batch's rows, and its score is masked to -1e30
-//    as in the Pallas kernel.  Two blocks fit on an SM at D = 128.
+//    as in the Pallas kernel.  Two blocks fit on an SM at D <= 128; at
+//    D = 192 (MLA's q/k head width, 168 KB) and D = 256 (224 KB) one does,
+//    and the block may then hold up to 255 registers a thread: O takes
+//    NSL x 32 of them (96 at D = 192) beside S's 32.
 //  * S = Q K^T by wgmma into registers; the online softmax runs in
 //    registers with one multiply, one subtraction and one ex2 per score
 //    (row max and sum across the 4 threads sharing a row, by shuffles);
@@ -35,7 +42,10 @@
 //    registers and is written once, divided by the row sum, through Q's
 //    shared memory and a TMA store that clips the ragged edges.
 //  * k tiles that the causal mask or the window hides from every row of the
-//    block are not visited.  D up to 128 in one or two 64-column slabs.
+//    block are not visited.  D up to 256 (the Pallas kernel's range) in
+//    one to four 64-column slabs; a D that is not a multiple of 64 reads
+//    zeros past it in Q, so the neighbouring head's K columns that the
+//    last slab loads add nothing to S, and the TMA store clips O there.
 #include "hopper.cuh"
 
 #include <limits.h>
@@ -57,7 +67,8 @@ constexpr int THREADS = CONSUMERS + 32;   // + one producer warp
 // Q, then the K and V stages, then full and empty barriers.  No alignment
 // slack: the dynamic shared memory of a block without static shared
 // memory starts 1024-byte aligned (checked on entry), which lets two blocks
-// with a three-stage ring share an SM at D = 128.
+// with a three-stage ring share an SM at D = 128 and one block with a
+// three-stage ring fit at D = 256 (229,432 of 232,448 bytes).
 template <int NSL>
 constexpr size_t smem_bytes() {
   return (size_t)(1 + 2 * STAGES) * NSL * SLAB_BYTES +
@@ -75,8 +86,12 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
+// blocks that share an SM: two up to two slabs, one above
 template <int NSL>
-__global__ void __launch_bounds__(THREADS, 2)
+constexpr int kBlocksPerSm = NSL <= 2 ? 2 : 1;
+
+template <int NSL>
+__global__ void __launch_bounds__(THREADS, kBlocksPerSm<NSL>)
 flash_kernel(__grid_constant__ const CUtensorMap qmap,
              __grid_constant__ const CUtensorMap kmap,
              __grid_constant__ const CUtensorMap vmap,
@@ -94,12 +109,14 @@ flash_kernel(__grid_constant__ const CUtensorMap qmap,
   const int G = Hq / Hkv;
   const int BQ = ROWS / G;                 // query positions per block
   // Work items (batch x kv head, query tile) go to blocks longest causal
-  // chain first.  When the grid is at most two blocks per SM, the second
-  // block of each SM takes the rest shortest first, so that an SM pairs
-  // a long chain with a short one instead of two long ones.
+  // chain first.  Where two blocks share an SM and the grid is at most two
+  // blocks per SM, the second block of each SM takes the rest shortest
+  // first, so that an SM pairs a long chain with a short one instead of
+  // two long ones.  With one block per SM the order stays longest first.
   const int nx = gridDim.x, n_items = nx * gridDim.y;
   int item = blockIdx.y * nx + blockIdx.x;
-  if (n_items <= 2 * sms && item >= sms) item = sms + (n_items - 1 - item);
+  if (kBlocksPerSm<NSL> == 2 && n_items <= 2 * sms && item >= sms)
+    item = sms + (n_items - 1 - item);
   const int b = (item % nx) / Hkv, kvh = (item % nx) % Hkv;
   const int q0 = (gridDim.y - 1 - item / nx) * BQ;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
@@ -357,14 +374,14 @@ int sm_count() {
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D), all bf16,
-// contiguous and 16-byte aligned.  Requires D % 16 == 0, D <= 128 and
+// contiguous and 16-byte aligned.  Requires D % 16 == 0, D <= 256 and
 // 64 % (Hq / Hkv) == 0 (checked by the Python wrapper).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
                                       int causal, int window, float softcap,
                                       float scale, void* stream) {
-  if (D % 16 || D > 128 || Hq % Hkv || ROWS % (Hq / Hkv) || B <= 0 ||
+  if (D % 16 || D > 256 || Hq % Hkv || ROWS % (Hq / Hkv) || B <= 0 ||
       Sq <= 0 || Sk <= 0 || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                              (uintptr_t)o) % 16)
     return cudaErrorInvalidValue;
@@ -385,7 +402,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       (err = tensor_map_3d(&vmap, v, row, Sk, B, row, row * Sk, BKV)))
     return err;
   static const int sms = sm_count();
-  return (D <= 64 ? launch<1> : launch<2>)(
+  const int nsl = (D + 63) / 64;
+  return (nsl == 1 ? launch<1> : nsl == 2 ? launch<2> : nsl == 3 ? launch<3>
+                                                                  : launch<4>)(
       qmap, kmap, vmap, omap, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap,
       scale, sms, (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@ query i at key position Sk - Sq + i; ``csrc/flash_attention.cu``.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` (dense softmax, float32) for CPU tensors.
-q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
+q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype;
+the kernel takes D % 16 == 0 up to ``MAX_D`` = 256.
 When autograd needs a gradient (training on the card) the launch runs
 inside ``FlashAttentionFn``, whose backward recomputes through
 ``flash_attention_plain``; otherwise ``flash_attention`` launches
@@ -19,6 +20,9 @@ from repro_torch import kernels
 from repro_torch.kernels.build import check, library
 
 NEG_INF = -1e30
+# the widest head the CUDA kernel takes (four 64-column slabs), the Pallas
+# kernel's range; MLA's q/k heads are 192 wide
+MAX_D = 256
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -64,9 +68,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"flash_attention's CUDA kernel takes contiguous "
                              f"bfloat16 tensors on {q.device}; {name} is "
                              f"{t.dtype} on {t.device}")
-    if D % 16 or D > 128 or Hq % Hkv or 64 % (Hq // Hkv):
+    if D % 16 or D > MAX_D or Hq % Hkv or 64 % (Hq // Hkv):
         raise ValueError(f"flash_attention's CUDA kernel needs D % 16 == 0, "
-                         f"D <= 128 and (Hq / Hkv) dividing 64; got D={D} "
+                         f"D <= {MAX_D} and (Hq / Hkv) dividing 64; got D={D} "
                          f"Hq={Hq} Hkv={Hkv}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:

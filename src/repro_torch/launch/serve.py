@@ -5,6 +5,10 @@ wave server, ``--server wave``) with a registered offload policy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --requests 16 --max-new 32 --server continuous --policy dali
 
+``--arch`` is one of the paper's three evaluation models: mixtral-8x7b,
+qwen3-30b-a3b (qk-norm, 128 experts top-8) or deepseek-v2-lite-16b (MLA,
+a dense first layer, 2 shared experts beside 64 routed top-6).
+
 As the JAX launcher does, it first trains the model ``--train-steps``
 AdamW steps on the ``MarkovCorpus`` (batch 8 x 64 tokens,
 ``launch/train.py``) so that routing has real structure, from random
@@ -51,12 +55,10 @@ def main(argv=None):
     from repro_torch.data.pipeline import MarkovCorpus
     from repro_torch.device import resolve_device
     from repro_torch.launch.train import train_loop, training_bytes
-    from repro_torch.models.model import host_empty, init_model
-    from repro_torch.models.moe import is_expert_leaf
+    from repro_torch.models.model import experts_to_host, init_model
     from repro_torch.serving.scheduler import SERVER_PRESETS, Request
     from repro_torch.serving.spec import OffloadSpec, ServeSpec
     from repro_torch.serving.steps import default_dali_config
-    from repro_torch.tree import tree_map_with_path
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mixtral-8x7b")
@@ -112,7 +114,8 @@ def main(argv=None):
     host_experts = args.offload != "modeled" and not args.check_exact
     experts = "host" if host_experts and not train_steps else "device"
     if args.weights:
-        params = load_npz(args.weights, device=dev, experts=experts)
+        params = load_npz(args.weights, device=dev, experts=experts,
+                          cfg=cfg)
         print(f"== serving {cfg.name} with weights from {args.weights}")
     else:
         params = init_model(cfg, seed=args.seed, device=dev,
@@ -136,9 +139,7 @@ def main(argv=None):
                                      params=params)
         print(f"   ce {hist[0]:.2f} -> {hist[-1]:.2f}")
         if host_experts:
-            params = tree_map_with_path(
-                lambda p, t: host_empty(t.shape, t.dtype, dev).copy_(t)
-                if is_expert_leaf(p) else t, params)
+            params = experts_to_host(params, cfg, dev)
 
     policy = "none" if args.no_dali else args.policy
     dali_cfg = None

@@ -1,5 +1,5 @@
 """Transformer block assembly (port of ``repro/models/blocks.py`` for
-attention mixers with a dense or MoE MLP).
+self-attention mixers, GQA or MLA, with a dense or MoE MLP).
 
 ``apply_block(params, x, cfg, kinds, ...) -> (y, new_cache, moe_info)``
 where ``kinds = (mixer_kind, mlp_kind)`` from ``config.layer_pattern``.
@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.device import torch_dtype
 
-from .attention import gqa_attention, init_attention
+from .attention import gqa_attention, init_attention, mla_attention
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import apply_moe, init_moe
@@ -50,9 +50,13 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
     _check_kinds(cfg, kinds)
     mixer_kind, mlp_kind = kinds
     h = apply_norm(params["norm1"], x, cfg)
-    y, new_cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
-                                 positions=positions, cache=cache,
-                                 causal=causal)
+    if cfg.attn.mla is not None:
+        y, new_cache = mla_attention(params["mixer"], h, cfg,
+                                     positions=positions, cache=cache)
+    else:
+        y, new_cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
+                                     positions=positions, cache=cache,
+                                     causal=causal)
     x = x + y
     h = apply_norm(params["norm2"], x, cfg)
     moe_info = None
@@ -67,17 +71,25 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
 
 def init_block_cache(cfg: ModelConfig, kinds, batch: int, max_len: int,
                      device, dtype=None):
-    """An empty KV cache for one attention block."""
+    """An empty cache for one attention block: keys and values for GQA,
+    latents and rotary keys for MLA."""
     _check_kinds(cfg, kinds)
     a = cfg.attn
     dt = torch_dtype(dtype or cfg.dtype)
     S_c = max_len
     if kinds[0] == "attn_local" and a.sliding_window:
         S_c = min(max_len, a.sliding_window)
+    pos = torch.full((batch, S_c), -1, dtype=torch.int32, device=device)
+    if a.mla is not None:
+        m = a.mla
+        return {"ckv": torch.zeros((batch, S_c, m.kv_lora_rank), dtype=dt,
+                                   device=device),
+                "kpe": torch.zeros((batch, S_c, m.qk_rope_head_dim),
+                                   dtype=dt, device=device),
+                "pos": pos}
     hd = cfg.head_dim()
     return {"k": torch.zeros((batch, S_c, a.n_kv_heads, hd), dtype=dt,
                              device=device),
             "v": torch.zeros((batch, S_c, a.n_kv_heads, hd), dtype=dt,
                              device=device),
-            "pos": torch.full((batch, S_c), -1, dtype=torch.int32,
-                              device=device)}
+            "pos": pos}

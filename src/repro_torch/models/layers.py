@@ -52,6 +52,14 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
     return (y * (1.0 + params["w"].float())).to(x.dtype)
 
 
+def rms_norm_vec(w, x, eps: float = 1e-6):
+    """RMSNorm over the last axis with weight ``w`` (``(1 + w)``, float32):
+    Qwen3's qk-norm on every head, MLA's latent and query norms."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Rotary position embeddings
 # --------------------------------------------------------------------------

@@ -44,19 +44,28 @@ def host_empty(shape, dtype, device):
     return torch.empty(shape, dtype=dtype)
 
 
+def experts_to_host(params, cfg: ModelConfig, device):
+    """``params`` with each routed expert stack (``is_expert_leaf``) copied
+    into host memory (page-locked when ``device`` is a card); every other
+    leaf, the shared experts and dense FFNs included, stays where it is."""
+    return tree_map_with_path(
+        lambda path, t: host_empty(t.shape, t.dtype, device).copy_(t)
+        if is_expert_leaf(path, cfg) else t, params)
+
+
 def _init_stack(gen, cfg: ModelConfig, pattern, n_super: int, device,
                 host_experts: bool):
     """Stacked params, leaves (n_super, ...), filled one block at a time so
     the peak is one block above the model's own size (with
     ``host_experts``, one block above the model without its experts)."""
-
-    def empty(path, a):
-        if host_experts and is_expert_leaf(path):
-            return host_empty((n_super,) + a.shape, a.dtype, device)
-        return a.new_empty((n_super,) + a.shape)
-
     out = []
-    for kinds in pattern:
+    for p, kinds in enumerate(pattern):
+
+        def empty(path, a):
+            if host_experts and is_expert_leaf(("scan", p) + path, cfg):
+                return host_empty((n_super,) + a.shape, a.dtype, device)
+            return a.new_empty((n_super,) + a.shape)
+
         stacked = None
         for i in range(n_super):
             blk = init_block(gen, cfg, kinds, device)
@@ -86,13 +95,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
             "\"Remaining architectures\")")
     host = experts_on_host(experts)
 
-    def block(kinds):
+    def block(i, kinds):
         blk = init_block(gen, cfg, kinds, dev)
         if not host:
             return blk
         return tree_map_with_path(
             lambda path, a: host_empty(a.shape, a.dtype, dev).copy_(a)
-            if is_expert_leaf(path) else a, blk)
+            if is_expert_leaf(("prefix", i) + path, cfg) else a, blk)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -100,7 +109,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     return {
         "embed": init_embedding(gen, cfg, dev),
         "final_norm": init_norm(cfg, dev),
-        "prefix": tuple(block(kinds) for kinds in prefix_pat),
+        "prefix": tuple(block(i, kinds)
+                        for i, kinds in enumerate(prefix_pat)),
         "scan": _init_stack(gen, cfg, period_pat, n_super, dev, host),
     }
 

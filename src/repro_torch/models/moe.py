@@ -23,6 +23,10 @@ prefill sweeps run K2 grouped over the (E, C, d) buckets with
 full-resident one, so the fetch tier is bit-equal to full-resident
 execution.
 
+Shared experts (DeepSeek-V2-Lite's ``n_shared``) are one dense FFN that
+every token runs, added on every path as in the reference; they stay on
+the device in an offloaded serve, unseen by the store and the policy.
+
 The layer returns the same routing observables (``info``) as the
 reference: workloads, top-k choices, gates, router probabilities, gate
 inputs, aux/z losses and drops — what the DALI policy schedules on.
@@ -37,18 +41,27 @@ import torch
 from repro_torch.kernels.expert_ffn.ops import expert_ffn
 from repro_torch.kernels.gating.ops import gating
 
-from .config import ModelConfig, MoEConfig
-from .layers import dense_init
+from .config import ModelConfig, MoEConfig, scan_pattern
+from .layers import apply_mlp, dense_init, init_mlp
 
 # the routed expert stacks of an MoE layer's params: what a physical-offload
 # store keeps on the host and ``strip_expert_params`` removes
 EXPERT_KEYS = ("gate", "up", "down")
 
 
-def is_expert_leaf(path) -> bool:
-    """Whether a params key path (``.../mlp/gate`` etc.) is a routed expert
-    stack."""
-    return len(path) >= 2 and path[-2] == "mlp" and path[-1] in EXPERT_KEYS
+def is_expert_leaf(path, cfg: ModelConfig) -> bool:
+    """Whether a key path from the params' root is a routed expert stack:
+    ``gate`` / ``up`` / ``down`` directly under the ``mlp`` of a block whose
+    MLP kind in ``scan_pattern(cfg)`` is "moe" (``("prefix", i, "mlp",
+    key)`` or ``("scan", p, "mlp", key)``).  A dense block's FFN, such as
+    DeepSeek-V2-Lite's first layer, has the same keys and is not one; nor
+    are the shared experts (``mlp/shared/*``)."""
+    if len(path) != 4 or path[0] not in ("prefix", "scan") \
+            or path[2] != "mlp" or path[3] not in EXPERT_KEYS:
+        return False
+    prefix_pat, period_pat, _ = scan_pattern(cfg)
+    pattern = prefix_pat if path[0] == "prefix" else period_pat
+    return pattern[path[1]][1] == "moe"
 
 
 # inputs above this many tokens are chunked by the reference
@@ -77,11 +90,10 @@ def use_sparse_path(m: MoEConfig, n_tokens: int,
 
 
 def init_moe(gen, cfg: ModelConfig, device):
+    """Router, routed expert stacks (E, ...) and, with ``n_shared``, the
+    shared experts as one dense FFN of width ``d_shared`` (default
+    ``n_shared * d_expert``), which every token runs."""
     m = cfg.moe
-    if m.n_shared:
-        raise NotImplementedError(
-            "shared experts are ported with deepseek-v2-lite (ROADMAP.md "
-            "queue 1, \"The paper's other evaluation models\")")
     d = cfg.d_model
     de = m.d_expert or cfg.d_ff
     dt = cfg.param_dtype
@@ -90,12 +102,16 @@ def init_moe(gen, cfg: ModelConfig, device):
         return torch.stack([dense_init(gen, shape, dt, device)
                             for _ in range(m.n_routed)])
 
-    return {
+    p = {
         "router": dense_init(gen, (d, m.n_routed), "float32", device),
         "gate": stack((d, de)),
         "up": stack((d, de)),
         "down": stack((de, d)),
     }
+    if m.n_shared:
+        p["shared"] = init_mlp(gen, cfg, device,
+                               d_ff=m.d_shared or m.n_shared * de)
+    return p
 
 
 def route(params, x_flat, m: MoEConfig):
@@ -333,6 +349,8 @@ def apply_moe(params, x, cfg: ModelConfig, *,
              * gates.to(contrib.dtype)[..., None]).sum(1)
         dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)
     y = y.to(x.dtype)
+    if m.n_shared:
+        y = y + apply_mlp(params["shared"], xf, cfg)
 
     frac_tokens = counts.float() / (T * K)
     mean_prob = probs.mean(0)

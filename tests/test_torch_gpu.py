@@ -557,3 +557,121 @@ def test_train_step_on_the_card_gives_every_leaf_a_gradient(cuda):
     for g in tree_leaves(grads):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     assert not any(p.requires_grad for p in tree_leaves(params))
+
+
+# --------------------------------------------------------------------------
+# Qwen3-30B-A3B's and DeepSeek-V2-Lite's shapes
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,cap", [
+    (1, 128, 16, 16, 192, True, 0, 0.0),      # MLA prefill buckets
+    (1, 512, 16, 16, 192, True, 0, 0.0),
+    (2, 77, 16, 16, 192, True, 0, 0.0),       # ragged tail, G = 1
+    (1, 100, 32, 4, 192, True, 0, 0.0),       # G = 8 at three slabs
+    (1, 130, 8, 2, 176, False, 24, 20.0),     # D not a multiple of 64
+    (1, 256, 16, 16, 256, True, 0, 0.0),      # four slabs, the limit
+    (2, 70, 8, 4, 256, False, 0, 0.0),
+    (1, 256, 32, 4, 128, True, 0, 0.0),       # Qwen3's prefill (qk-norm)
+])
+def test_flash_attention_wide_heads_match_plain(cuda, B, S, Hq, Hkv, D,
+                                                causal, window, cap):
+    """K3 at three and four 64-column slabs (one block per SM): MLA's
+    q/k head width 192 with the values zero-padded to it, as
+    ``mla_attention`` pads them, and the Pallas kernel's limit 256."""
+    rng = np.random.default_rng(D + S)
+    t = lambda shape: torch.tensor(rng.standard_normal(shape),
+                                   dtype=torch.bfloat16, device=cuda)
+    q, k, v = t((B, S, Hq, D)), t((B, S, Hkv, D)), t((B, S, Hkv, D))
+    if D == 192:
+        v[..., 128:] = 0                        # MLA's padded values
+    before = kernels.LAUNCHES["flash_attention"]
+    o = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    r = flash_attention_plain(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    assert _rel_err(o, r) < BF16_TOL
+    if D == 192:
+        assert not bool(o[..., 128:].float().abs().sum())
+
+
+@pytest.mark.parametrize("D", [272, 320, 200])
+def test_flash_attention_refuses_heads_past_its_limit(cuda, D):
+    q = torch.zeros((1, 8, 2, D), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("T,E,k", [(2, 64, 6), (8, 64, 6), (48, 64, 6),
+                                   (2, 128, 8), (8, 128, 8), (256, 128, 8)])
+def test_gating_warp_at_the_new_routers_matches_plain(cuda, T, E, k):
+    """K1's warp variant at DeepSeek-V2-Lite's (64, top-6) and
+    Qwen3-30B-A3B's (128, top-8) routers, softmax then top-k,
+    renormalised: decode batches and the 256-token admission bucket."""
+    rng = np.random.default_rng(T * E)
+    lg = torch.tensor(rng.standard_normal((T, E)) * 2, dtype=torch.float32,
+                      device=cuda)
+    assert plan(E, k)[0] == "warp"
+    _check_gating(lg, k, "softmax_topk", True)
+
+
+@pytest.mark.parametrize("f,E,K", [(768, 128, 8), (1408, 64, 6)])
+def test_expert_ffn_at_the_new_expert_widths_matches_plain(cuda, f, E, K):
+    """K2 ragged over an admission bucket and grouped over a batch-8
+    decode (G = 8 K groups of one row, repeated expert ids) at d = 2048 and
+    Qwen3-30B-A3B's / DeepSeek-V2-Lite's expert widths."""
+    d = 2048
+    rng = np.random.default_rng(f)
+    T = 256
+    C = max(4, -(-T * K // E) * 5 // 4)
+    xe, wg, wu, wd = _ffn_inputs(cuda, E, E, C, d, f, seed=f)
+    idx = rng.integers(0, E, (T * K,))
+    cnt = torch.tensor(np.minimum(np.bincount(idx, minlength=E), C),
+                       dtype=torch.int32, device=cuda)
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    assert _rel_err(y, expert_ffn_plain(xe, wg, wu, wd, counts=cnt)) \
+        < BF16_TOL
+    G = 8 * K
+    xs = xe[:G, :1].contiguous()
+    eids = torch.tensor(rng.integers(0, E, (G,)), dtype=torch.int32,
+                        device=cuda)
+    ones = torch.ones((G,), dtype=torch.int32, device=cuda)
+    y = expert_ffn(xs, wg, wu, wd, counts=ones, expert_ids=eids)
+    torch.cuda.synchronize()
+    r = expert_ffn_plain(xs, wg, wu, wd, counts=ones, expert_ids=eids)
+    assert _rel_err(y, r) < BF16_TOL
+
+
+@pytest.mark.parametrize("arch", ["qwen3-30b-a3b", "deepseek-v2-lite-16b"])
+def test_new_models_prefill_through_the_kernels(cuda, arch):
+    """A bfloat16 smoke model of each family: the prefill launches K1 and
+    K3 in every layer (MLA's at its padded head width; never SDPA or the
+    plain version) and gives finite logits; the first layer's attention
+    (qk-norm GQA, or MLA) is within 3e-2 of the same layer on the CPU."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.attention import gqa_attention, mla_attention
+    from repro_torch.models.model import apply_model, init_model
+    from repro_torch.tree import tree_map
+    cfg = make_smoke(get_config(arch)).replace(dtype="bfloat16",
+                                               param_dtype="bfloat16")
+    cpu = init_model(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 40)), dtype=torch.int32)
+    kernels.reset_launch_counts()
+    lg, _, _ = apply_model(gpu, toks.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert kernels.LAUNCHES["gating"] + kernels.LAUNCHES["gating_warp"] > 0
+    assert bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+    x = torch.tensor(np.random.default_rng(1).standard_normal(
+        (1, 40, cfg.d_model)), dtype=torch.bfloat16)
+    pos = torch.arange(40, dtype=torch.int32)
+    attn = (mla_attention if cfg.attn.mla is not None else
+            lambda p, h, c, **kw: gqa_attention(p, h, c, kind="attn", **kw))
+    mixer = lambda tree: tree["prefix"][0]["mixer"] if tree["prefix"] \
+        else tree_map(lambda t: t[0], tree["scan"][0]["mixer"])
+    yc, _ = attn(mixer(cpu), x, cfg, positions=pos)
+    yg, _ = attn(mixer(gpu), x.to(cuda), cfg, positions=pos.to(cuda))
+    assert _rel_err(yg.cpu(), yc) < BF16_TOL

@@ -396,8 +396,8 @@ def test_experts_on_host_are_the_same_weights_and_adopted(model, tmp_path):
     path = tmp_path / "w.npz"
     bridge.save_npz(path, jax.tree.map(np.asarray, jp))
     for p in (bridge.to_torch(jax.tree.map(np.asarray, jp), "cpu",
-                              experts="host"),
-              bridge.load_npz(path, device="cpu", experts="host")):
+                              experts="host", cfg=tc),
+              bridge.load_npz(path, device="cpu", experts="host", cfg=tc)):
         _equal_trees(tp, p)
         pol = tsteps.resolve_policy("dali", tc)
         store = _store(tc, p, pol, "pipelined")
