@@ -82,7 +82,27 @@ outside a checkout.  Phases (any failure exits non-zero):
    on the card; (d) every layer of each model (27 and 48), full-resident
    when it fits beside what the process holds (else pipelined at cache
    ratio 0.25, printed), 2 requests x 8 tokens at batch 2, with peak
-   device memory and decode rate.
+   device memory and decode rate;
+11. faults — fault-tolerant offload streaming on Mixtral-8x7B at 8
+   layers (seed 0): (a) ``CostModel.calibrate_link`` on the card (the
+   fitted GB/s, latency and whether the fit was rejected) and one
+   expert's copy from the pinned store against its time at that rate, an
+   expert's int8 twin and row checksums card against CPU; (b) phase 5's
+   first two batch-2 requests (16 tokens) in the blocking, overlap and
+   pipelined modes (fetch tier, cache ratio 0.25) under
+   ``transient_stall@2-5``, ``read_error@1-4`` and ``corrupt_rows@1-8``
+   must give phase 5's tokens with no plan dropped (every corrupt row
+   caught and copied again), one line of counters per run; (c) in
+   pipelined and overlap, phase 5's batch-2 requests under
+   ``link_degrade:x12@5-25``: the ladder must go healthy -> degraded ->
+   little -> healthy, every step before the first little step must give
+   the fault-free run's logits bit for bit and the first little step's
+   must be within 0.2 (relative norm) of them, K4 must launch in the
+   little window (counts zeroed just before it, read just after it),
+   and fresh requests after recovery must give the fault-free tokens;
+   median ms per step per rung, time to recover, little_bytes and peak
+   device memory are printed; (d) the launcher with ``--offload
+   pipelined --faults transient_stall --check-exact`` must return.
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -1846,6 +1866,342 @@ def model_full_depth(torch, name, arch, full_bytes):
     return ok
 
 
+# --------------------------------------------------------------------------
+# phase 11: fault-tolerant offload streaming
+# --------------------------------------------------------------------------
+
+FAULT_RUNS = ("transient_stall@2-5", "read_error@1-4", "corrupt_rows@1-8")
+FAULT_NEW = 16               # (b): the first two requests, 16 tokens each
+# (c): steps 1-4 calibrate the watchdog, 3 late steps from step 5 trip
+# DEGRADED, 6 degraded steps move it to LITTLE; the slowdown ends at step
+# 25 and 3 on-time probes (one each 3 steps) heal it
+LADDER_FAULT = "link_degrade:x12@5-25"
+LITTLE_TOL = 0.2             # the reference's bound on the little rung
+
+
+class StepRecorder:
+    """Wraps a server's ``ResilientDecode``: records each step's rung, the
+    last-position logits of its live rows and the step's start (the host
+    clock at the store's ``pre_step``), and zeroes the kernels' launch
+    counters just before the first little step's decode and reads them
+    just after the last one."""
+
+    def __init__(self, torch, kernels, server):
+        self.torch, self.kernels = torch, kernels
+        self.decode, self.store = server._decode, server.store
+        self.steps, self.little_counts = [], None
+        self._in_little = False
+        server._decode = self
+        if self.store is not None:
+            pre = self.store.pre_step
+
+            def pre_step(*a, **kw):
+                self.steps.append({"t": time.perf_counter()})
+                return pre(*a, **kw)
+
+            self.store.pre_step = pre_step
+
+    def react(self):
+        return self.decode.react()
+
+    @property
+    def active(self):
+        return getattr(self.decode, "active", "healthy")
+
+    def __call__(self, params, state, res_vecs=None):
+        if self.store is None:
+            self.steps.append({"t": time.perf_counter()})
+        rung = self.active
+        if rung == "little" and not self._in_little:
+            self.torch.cuda.synchronize()
+            self.kernels.reset_launch_counts()
+            self._tel0 = self.store.stats()
+            self._in_little = True
+        elif rung != "little" and self._in_little:
+            self._close_little()
+        live = state["active"].clone()
+        out = self.decode(params, state, res_vecs)
+        self.steps[-1].update(rung=rung, logits=out[1][:, -1].float()[
+            live].cpu())
+        return out
+
+    def _close_little(self):
+        self.torch.cuda.synchronize()
+        self.little_counts = self.kernels.launch_counts()
+        tel = self.store.stats()
+        self.little_tel = {k: tel[k] - self._tel0[k] for k in tel}
+        self._in_little = False
+
+    def rung_ms(self):
+        """Median ms per step of each phase: healthy before the first
+        fault transition, degraded, little, healthy after recovery."""
+        import numpy as np
+        out, seen_down = {}, False
+        for a, b in zip(self.steps, self.steps[1:]):
+            rung = a.get("rung", "healthy")
+            seen_down = seen_down or rung != "healthy"
+            key = ("recovered" if rung == "healthy" and seen_down else rung)
+            out.setdefault(key, []).append((b["t"] - a["t"]) * 1e3)
+        return {k: (float(np.median(v)), len(v)) for k, v in out.items()}
+
+
+def faults_phase(torch, kernels, name, batch2, res_vecs):
+    """(a) the link on the card: ``CostModel.calibrate_link`` fitted from
+    copies of pinned expert-sized buffers, and one expert's copy against
+    its bound at that rate; (b) phase 5's first two batch-2 requests under
+    transient, read-error and corrupt-row faults in every mode (fetch tier,
+    cache ratio 0.25) give phase 5's tokens; (c) the whole ladder in
+    pipelined and overlap under a persistent x12 slowdown: healthy ->
+    degraded -> little -> healthy, bit-equal logits before the little
+    rung, the first little step within 0.2 of the fetch tier's, K4 launched
+    on the little rung, fresh requests exact after recovery; (d) the
+    launcher with ``--faults transient_stall --check-exact``.  Returns
+    (ok, launch counts of (c)'s little window)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.expert_store import row_checksums
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    ok = True
+    cfg = get_config("mixtral-8x7b").replace(n_layers=8)
+    # (a) -- the link
+    cm = CostModel.for_config(cfg)
+    t0 = time.perf_counter()
+    # a rejected fit (a negative latency: the link's tens of microseconds
+    # lie below the jitter of copies that take milliseconds) is printed,
+    # not failed: it is the fit's guard at work, and the watchdog
+    # re-baselines from its own timings anyway
+    fit = cm.calibrate_link(repeats=10)
+    eb = int(cm.expert_bytes)
+    print(f"faults (a): calibrate_link on the card (1, 2, 4, 8 experts of "
+          f"{eb / 1e6:.1f} MB from pinned memory, 10 copies each, each "
+          f"waited): {fit.link_gbps:.3f} GB/s, latency "
+          f"{fit.link_latency_s * 1e6:.1f} us, link_fit_rejected="
+          f"{fit.link_fit_rejected} (LOCAL_PC assumes "
+          f"{cm.profile.link_gbps:.1f} GB/s, "
+          f"{cm.profile.link_latency_s * 1e6:.0f} us); trans_time "
+          f"{fit.trans_time * 1e3:.3f} ms against LOCAL_PC's "
+          f"{cm.trans_time * 1e3:.3f} ms, {time.perf_counter() - t0:.1f} s "
+          f"| on {name}", flush=True)
+
+    t0 = time.perf_counter()
+    host = init_model(cfg, seed=0, device="cuda", experts="host")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(host))
+    print(f"faults: 8-layer Mixtral-8x7B from seed 0 ({weights / 1e9:.2f} "
+          f"GB), experts pinned on the host, {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    src = host["scan"][0]["mlp"]
+    dst = {k: torch.empty(src[k].shape[2:], dtype=src[k].dtype,
+                          device="cuda") for k in ("gate", "up", "down")}
+    ms = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for k in dst:
+            dst[k].copy_(src[k][0, 0], non_blocking=True)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    bound_ms = fit.trans_time * 1e3
+    print(f"faults (a): one expert ({eb / 1e6:.1f} MB) from the pinned "
+          f"store: {min(ms):.3f} ms best of 5 (CUDA events: "
+          f"{', '.join(f'{m:.3f}' for m in ms)}), "
+          f"{eb / (min(ms) / 1e3) / 1e9:.2f} GB/s, against "
+          f"{bound_ms:.3f} ms at the fitted rate | on {name}", flush=True)
+    del dst
+    # the int8 quantizer on the card against the CPU, one expert
+    w = src["gate"][0, 0]
+    want = [w.float().abs().amax(dim=-2, keepdim=True)
+            / torch.tensor(127.0)]
+    want[0] = want[0].clamp_min(1e-8)
+    want.append(torch.round(w.float() / want[0]).clamp_(-127, 127)
+                .to(torch.int8))
+    wc = w.cuda().float()
+    sc = (wc.abs().amax(dim=-2, keepdim=True)
+          / wc.new_tensor(127.0)).clamp_min(1e-8)
+    got = [sc, torch.round(wc / sc).clamp_(-127, 127).to(torch.int8)]
+    quant_ok = all(torch.equal(g.cpu(), r) for g, r in zip(got, want))
+    sums = row_checksums(src["gate"][0, :4].cuda()).cpu()
+    sums_ok = torch.equal(sums, row_checksums(src["gate"][0, :4]))
+    ok = ok and quant_ok and sums_ok
+    t0 = time.perf_counter()
+    row_checksums(*(src[k][0, 1][None] for k in ("gate", "up", "down")))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"faults (a): int8 twin of one expert card == CPU: {quant_ok}; "
+          f"row checksums card == CPU: {sums_ok}; one expert's checksum "
+          f"on the host (the pinned store's truth, once per (layer, "
+          f"expert) and store): {host_ms:.1f} ms", flush=True)
+    del w, wc, sc, got, want
+
+    dcfg = default_dali_config(cfg, cache_ratio=0.25)
+
+    def resolved(mode, faults):
+        return ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg,
+                         batch_size=2, max_len=MAX_LEN, eos_id=-1,
+                         offload=OffloadSpec(mode=mode, faults=faults)
+                         ).resolve(host)
+
+    # (b) -- transient and integrity faults are exact
+    prompts = [p for p, _ in batch2[:2]]
+    want_b = [out[:FAULT_NEW] for _, out in batch2[:2]]
+    for mode in MODES:
+        for faults in FAULT_RUNS:
+            t0 = time.perf_counter()
+            server, done, wall = run_requests(
+                torch, resolved(mode, faults).server(res_vecs=res_vecs),
+                prompts, FAULT_NEW)
+            st = server.store.stats()
+            got = {r.rid: r.output for r in done}
+            same = [got.get(i) for i in range(2)] == want_b
+            good = same and st["stage_aborts"] == 0
+            if faults.startswith("transient"):
+                good = good and st["stalls"] > 0
+            elif faults.startswith("read_error"):
+                good = good and st["read_errors"] > 0
+            else:
+                good = (good and st["corrupt_caught"] > 0
+                        and st["restaged_rows"] >= st["corrupt_caught"])
+            ok = ok and good
+            print(f"faults (b) {mode} {faults}: tokens "
+                  f"{'identical to' if same else 'DIFFER from'} phase 5's | "
+                  f"{server.metrics.steps} steps in {wall:.2f} s, decode "
+                  f"{server.metrics.decode_tokens / server.metrics.decode_s:.1f}"
+                  f" tok/s | retries={st['retries']} stalls={st['stalls']} "
+                  f"read_errors={st['read_errors']} stage_aborts="
+                  f"{st['stage_aborts']} corrupt_caught={st['corrupt_caught']}"
+                  f" restaged_rows={st['restaged_rows']} probes="
+                  f"{st['probes']} h2d_rows={st['h2d_rows']} fallback_rows="
+                  f"{st['fallback_rows']} | {'pass' if good else 'FAIL'} | "
+                  f"on {name}", flush=True)
+            del server
+            free(torch)
+
+    # (c) -- the whole ladder, against the fault-free fetch tier's steps
+    prompts = [p for p, _ in batch2]
+    ref_srv = resolved("pipelined", None).server(res_vecs=res_vecs)
+    ref_rec = StepRecorder(torch, kernels, ref_srv)
+    _, ref_done, _ = run_requests(torch, ref_srv, prompts, 32)
+    ref_out = {r.rid: r.output for r in ref_done}
+    same5 = [ref_out.get(i) for i in range(len(batch2))] \
+        == [out for _, out in batch2]
+    ok = ok and same5
+    rng = np.random.default_rng(13)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    fresh = [corpus.sample(rng, int(rng.integers(24, 201))) for _ in range(2)]
+    _, fresh_ref, _ = run_requests(torch, ref_srv, fresh, 8)
+    fresh_ref = {r.rid: r.output for r in fresh_ref}
+    del ref_srv
+    little_counts = None
+    for mode in ("pipelined", "overlap"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        server = resolved(mode, LADDER_FAULT).server(res_vecs=res_vecs)
+        store = server.store
+        t_little = time.perf_counter()
+        store.little_view()            # the twins, built before the window
+        torch.cuda.synchronize()
+        t_little = time.perf_counter() - t_little
+        rec = StepRecorder(torch, kernels, server)
+        _, done, wall = run_requests(torch, server, prompts, 32)
+        if rec._in_little:
+            rec._close_little()
+        rungs = [s.get("rung", "healthy") for s in rec.steps]
+        trans = store.ladder.transitions
+        path = [b for _, _, b in trans]
+        full_ladder = path[:3] == ["degraded", "little", "healthy"]
+        first = rungs.index("little") if "little" in rungs else len(rungs)
+        pairs = list(zip(rec.steps[:first], ref_rec.steps[:first]))
+        exact = all(torch.equal(a["logits"].argmax(-1),
+                                b["logits"].argmax(-1)) for a, b in pairs)
+        bitwise = all(torch.equal(a["logits"], b["logits"])
+                      for a, b in pairs)
+        err = float("nan")
+        if first < len(rungs):
+            a, b = rec.steps[first]["logits"], ref_rec.steps[first]["logits"]
+            a, b = a[:, :cfg.vocab].double(), b[:, :cfg.vocab].double()
+            err = float((a - b).norm() / b.norm())
+        healed = store.ladder.state == "healthy"
+        per = rec.rung_ms()
+        n0 = len(rec.steps)
+        _, fdone, _ = run_requests(torch, server, fresh, 8)
+        fresh_ok = healed and {r.rid: r.output for r in fdone} == fresh_ref \
+            and all(s.get("rung") == "healthy" for s in rec.steps[n0:])
+        lc = rec.little_counts or {}
+        k4 = lc.get("expert_ffn_grouped", 0) > 0
+        lt = getattr(rec, "little_tel", {})
+        good = (full_ladder and exact and err < LITTLE_TOL and fresh_ok
+                and k4 and lt.get("fallback_rows", 0) > 0)
+        ok = ok and good
+        if mode == "pipelined":
+            little_counts = lc
+        st = store.stats()
+        ttr = store.ladder.time_to_recover()
+        down = next((s for s, a, _ in trans if a == "healthy"), None)
+        up = next((s for s, _, b in reversed(trans) if b == "healthy"), None)
+        rec_s = (rec.steps[up]["t"] - rec.steps[down]["t"]
+                 if down is not None and up is not None
+                 and up < len(rec.steps) else float("nan"))
+        print(f"faults (c) {mode} {LADDER_FAULT}: transitions "
+              + ", ".join(f"step {s}: {a}->{b}" for s, a, b in trans)
+              + f" | full ladder: {full_ladder}; {first} steps before the "
+              f"first little step: tokens equal to the fault-free run's "
+              f"{exact}, logits bit-equal {bitwise}; "
+              f"first little step's logits rel_err {err:.4f} against the "
+              f"fetch tier (< {LITTLE_TOL}); time to recover {ttr} steps, "
+              f"{rec_s:.2f} s; fresh requests after recovery identical to "
+              f"the fault-free run: {fresh_ok} | "
+              f"{'pass' if good else 'FAIL'} | on {name}", flush=True)
+        print(f"faults (c) {mode}: ms per step (median, steps) "
+              + ", ".join(f"{k} {v[0]:.1f} ({v[1]})" for k, v in per.items())
+              + f" | little window: launches {json.dumps(lc)}, "
+              f"fallback_rows {lt.get('fallback_rows', 0)}, h2d_rows "
+              f"{lt.get('h2d_rows', 0)}, probes {lt.get('probes', 0)} | "
+              f"retries={st['retries']} little_steps={st['little_steps']} "
+              f"probes={st['probes']} host checksums {len(store._truth)} "
+              f"deadline_misses="
+              f"{store.watchdog.deadline_misses} refits="
+              f"{store.watchdog.refits} | watchdog link "
+              f"{store.watchdog.gbps:.2f} GB/s | on {name}", flush=True)
+        lay = store.memory_layout()
+        print(f"faults (c) {mode}: little_bytes "
+              f"{lay['little_bytes'] / 1e9:.2f} GB (built in {t_little:.1f} "
+              f"s), pool {lay['pool_bytes'] / 1e9:.2f} GB, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del server, store, rec
+        free(torch)
+    del host, ref_rec
+    free(torch)
+
+    # (d) -- the launcher
+    t0 = time.perf_counter()
+    try:
+        launcher.main(["--offload", "pipelined", "--faults",
+                       "transient_stall", "--check-exact", "--requests", "4",
+                       "--batch", "2", "--train-steps", "0"])
+        launched = True
+    except SystemExit as e:
+        launched = e.code in (0, None)
+    ok = ok and launched
+    print(f"faults (d): launcher --offload pipelined --faults "
+          f"transient_stall --check-exact: "
+          f"{'returned' if launched else 'FAILED'} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    free(torch)
+    print(f"faults: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok, little_counts or {k: 0 for k in kernels.LAUNCHES}
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1928,6 +2284,13 @@ def main():
     # -- phase 10: Qwen3-30B-A3B and DeepSeek-V2-Lite -------------------------
     models_ok, model_counts = models_phase(torch, kernels, card)
 
+    # -- phase 11: fault-tolerant offload streaming --------------------------
+    faults_ok, fault_counts = faults_phase(torch, kernels, card, batch2,
+                                           res_vecs)
+    print(f"faults: kernel launches in the little window "
+          f"{json.dumps(fault_counts)}", flush=True)
+    launched_ok = launched_ok and fault_counts["expert_ffn_grouped"] > 0
+
     out = []
     for r in rows:
         # a row at the offload path's, the wave's, training's or a phase-10
@@ -1949,6 +2312,7 @@ def main():
                     "launches_train": train_counts[r["name"]],
                     **{f"launches_{t}": c[r["name"]]
                        for t, c in model_counts.items()},
+                    "launches_faults_little": fault_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1968,6 +2332,7 @@ def main():
                               ("policies", policies_ok),
                               ("train", train_ok),
                               ("models", models_ok),
+                              ("faults", faults_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

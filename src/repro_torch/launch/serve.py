@@ -32,11 +32,19 @@ bfloat16, so ``--dtype`` defaults to it.
 serving/expert_store.py; the expert stacks then live in host memory, and
 the calibration trace runs through the store's slot path, so the
 residual vectors equal the full-resident ones bit for bit).
-``--check-exact`` re-serves the same requests full-resident ("modeled")
-and exits non-zero unless every request's tokens are identical:
+``--faults SPEC`` injects link and store faults into the physical
+offload path (serving/faults.py; e.g. ``link_degrade:x12@8-26`` or a bare
+preset name such as ``transient_stall``) and arms the link watchdog and the
+degradation ladder.  ``--check-exact`` re-serves the same requests and
+exits non-zero unless every request's tokens are identical: with
+``--faults`` against the same mode without faults (recovery is exact),
+otherwise against the full-resident ("modeled") serve:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --dtype float32 --server wave --policy lru --offload pipelined \
+      --check-exact
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --dtype float32 --offload overlap --faults corrupt_rows,read_error \
       --check-exact
 """
 from __future__ import annotations
@@ -88,9 +96,17 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--cache-ratio", type=float, default=0.5)
     ap.add_argument("--no-dali", action="store_true")
+    ap.add_argument("--faults", default=None,
+                    help="fault schedule for the offload path: comma-"
+                         "separated kind[:xFACTOR][@START[-STOP]] specs, kind "
+                         "in link_degrade|transient_stall|read_error|"
+                         "corrupt_rows (a bare kind takes its preset), e.g. "
+                         "'link_degrade:x12@8-26,read_error@30'; needs a "
+                         "physical --offload")
     ap.add_argument("--check-exact", action="store_true",
-                    help="re-serve full-resident (modeled) and exit non-zero "
-                         "unless every request's tokens are identical")
+                    help="re-serve without faults (with --faults) or "
+                         "full-resident (modeled) and exit non-zero unless "
+                         "every request's tokens are identical")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -105,13 +121,20 @@ def main(argv=None):
         train_steps = 120 if args.scale == "smoke" else 0
     if args.check_exact and args.offload == "modeled":
         raise SystemExit("--check-exact needs a physical --offload (it "
-                         "compares the run against the full-resident one)")
+                         "compares the run against a fault-free or a "
+                         "full-resident one)")
+    if args.faults and args.offload == "modeled":
+        raise SystemExit("--faults needs a physical --offload "
+                         "(blocking | overlap | pipelined)")
+    # the reference run of --check-exact: the same mode without faults
+    # (recovery is exact), or full-resident
+    ref_offload = args.offload if args.faults else "modeled"
     dev = resolve_device(args.device)
     corpus = MarkovCorpus(vocab=cfg.vocab, seed=args.seed)
     # a physical store reads the experts from the host: draw them there,
-    # unless training or the full-resident reference run needs them on
-    # the device
-    host_experts = args.offload != "modeled" and not args.check_exact
+    # unless training or a full-resident run needs them on the device
+    host_experts = args.offload != "modeled" and not (
+        args.check_exact and ref_offload == "modeled")
     experts = "host" if host_experts and not train_steps else "device"
     if args.weights:
         params = load_npz(args.weights, device=dev, experts=experts,
@@ -146,14 +169,14 @@ def main(argv=None):
     if cfg.moe is not None and policy != "none":
         dali_cfg = default_dali_config(cfg, cache_ratio=args.cache_ratio)
 
-    def resolve(offload):
+    def resolve(offload, faults=None):
         return ServeSpec(cfg=cfg, server=args.server, policy=policy,
                          dali_cfg=dali_cfg, batch_size=args.batch,
                          max_len=args.prompt_len + args.max_new + 2,
-                         offload=OffloadSpec(mode=offload),
+                         offload=OffloadSpec(mode=offload, faults=faults),
                          device=dev).resolve(params)
 
-    rs = resolve(args.offload)
+    rs = resolve(args.offload, args.faults)
     res_vecs = None
     if dali_cfg is not None:
         print("== calibrating residual vectors (paper Eq. 11)"
@@ -183,8 +206,9 @@ def main(argv=None):
     lat = [r.latency for r in done]
     ttft = [r.ttft for r in done if r.first_token_at]
     print(f"== served {len(done)} requests via {args.server} "
-          f"(policy={policy}, offload={args.offload}, device="
-          f"{server.device}) | {server.metrics.summary()}")
+          f"(policy={policy}, offload={args.offload}"
+          + (f", faults={args.faults}" if args.faults else "")
+          + f", device={server.device}) | {server.metrics.summary()}")
     if server.store is not None:
         st = server.store.stats()
         print(f"   physical offload: streamed {st['h2d_rows']} experts "
@@ -193,22 +217,43 @@ def main(argv=None):
               f"{st['prefill_waves']} | miss reads "
               f"{st['miss_reads'] / max(server.metrics.steps, 1):.1f} per "
               "decode step")
+        if args.faults:
+            h = server.store.health()
+            trans = ", ".join(f"step {t}: {a}->{b}"
+                              for t, a, b in h["transitions"])
+            print(f"   resilience: state={h['ladder_state']} "
+                  f"retries={st['retries']} stalls={st['stalls']} "
+                  f"read_errors={st['read_errors']} "
+                  f"stage_aborts={st['stage_aborts']} "
+                  f"corrupt_caught={st['corrupt_caught']} "
+                  f"restaged={st['restaged_rows']} "
+                  f"little_steps={st['little_steps']} "
+                  f"probes={st['probes']}"
+                  + (f" | transitions: {trans}" if trans else ""))
+            for name, lr in sorted(server.metrics.links.items()):
+                print(f"   link {name}: misses={lr['deadline_misses']} "
+                      f"refits={lr['refits']} "
+                      f"refit_rej={lr['refit_rejections']} "
+                      f"degrade_events={lr['degrade_events']} "
+                      f"gbps={lr['gbps']:.3g}")
     print(f"   latency p50={np.percentile(lat, 50):.2f}s "
           f"p95={np.percentile(lat, 95):.2f}s"
           + (f" | ttft p50={np.percentile(ttft, 50):.2f}s" if ttft else ""))
 
     if args.check_exact:
-        print("== --check-exact: re-serving the same requests "
-              "full-resident (modeled)")
-        _, ref = serve_once(resolve("modeled"))
+        ref_name = ("fault-free" if args.faults
+                    else "full-resident (modeled)")
+        print(f"== --check-exact: re-serving the same requests against the "
+              f"{ref_name} run")
+        _, ref = serve_once(resolve(ref_offload))
         by_rid = {r.rid: r.output for r in ref}
         bad = [r.rid for r in done if r.output != by_rid.get(r.rid)]
         if bad:
             print(f"   MISMATCH: requests {bad} diverged from the "
-                  "full-resident run")
+                  f"{ref_name} run")
             raise SystemExit(1)
         print(f"   exact-output parity verified: all {len(done)} requests "
-              "identical to the full-resident run")
+              f"identical to the {ref_name} run")
     return server, done
 
 

@@ -21,7 +21,8 @@ prefill sweeps run K2 grouped over the (E, C, d) buckets with
 ``expert_ids`` = pool rows or the rows of a wave of streamed misses
 (``slot_expert_sweep``).  Both keep each row's arithmetic the
 full-resident one, so the fetch tier is bit-equal to full-resident
-execution.
+execution; the little tier runs the same launches over experts
+dequantized from the store's int8 twins.
 
 Shared experts (DeepSeek-V2-Lite's ``n_shared``) are one dense FFN that
 every token runs, added on every path as in the reference; they stay on
@@ -158,7 +159,10 @@ def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
         miss rows over it, so every row is computed as full-resident
         decode computes it (bit-equal);
       * "host" — the missing rows' FFN runs on the CPU in float32 and only
-        the (d,) rows come back.
+        the (d,) rows come back;
+      * "little" — the missing experts are dequantized from the store's
+        device-resident int8 twins into the miss-staging rows, and the
+        second K2 launch runs over them (no host read, int8 quality).
 
     ``live`` (T,) bool marks live batch slots: a dead row never counts as a
     miss (a retired slot's garbage token must not fetch); its output comes
@@ -186,7 +190,10 @@ def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
         if slot_fetch.fallback == "host":
             ym = slot_fetch.host_ffn(lid, xf.cpu(), e_np, hit_np)
         else:
-            wg, wu, wd, srow = slot_fetch.fetch_weights(lid, e_np, hit_np)
+            stage = (slot_fetch.little_weights
+                     if slot_fetch.fallback == "little"
+                     else slot_fetch.fetch_weights)
+            wg, wu, wd, srow = stage(lid, e_np, hit_np)
             ym = expert_ffn(xs, wg, wu, wd, counts=miss.to(torch.int32),
                             expert_ids=torch.from_numpy(srow).to(xf.device),
                             act=cfg.act)[:, 0]
@@ -203,9 +210,11 @@ def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
     wave copied from the pinned host store into the staging rows its launch
     reads.  K2 skips empty groups, so experts without tokens need no
     weights, and every bucket is computed as the full-resident sweep
-    computes it (bit-equal).  Returns ``(ye, need)``: ``need`` (E,) bool
-    marks the experts the "host" tier still has to run (their buckets are
-    zero in ``ye``); all False for "fetch"."""
+    computes it (bit-equal).  "little" runs the same waves over experts
+    dequantized from the store's int8 twins.  Returns ``(ye, need)``:
+    ``need`` (E,) bool marks the experts the "host" tier still has to run
+    (their buckets are zero in ``ye``); all False for "fetch" and
+    "little"."""
     lid = slots["lid"]
     slot_fetch.wait_layer(lid)
     E = xe.shape[0]
@@ -220,9 +229,11 @@ def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
         return ye, need
     ids = np.nonzero(need)[0]
     P = slot_fetch.prefill_rows
+    stage = (slot_fetch.prefill_little if slot_fetch.fallback == "little"
+             else slot_fetch.prefill_fetch)
     for w in range(0, len(ids), P):
         wave = ids[w:w + P]
-        wg, wu, wd = slot_fetch.prefill_fetch(lid, wave)
+        wg, wu, wd = stage(lid, wave)
         rows = np.zeros(E, np.int32)
         rows[wave] = np.arange(len(wave), dtype=np.int32)
         sel = np.zeros(E, bool)

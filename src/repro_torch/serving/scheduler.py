@@ -23,9 +23,12 @@ telemetry accumulates there and is drained once per flush interval
 the batch's new tokens (and, with physical offload, the next pool target
 and the per-layer miss reads).  With a physical-offload store both servers
 drive its hooks where the reference does: ``prefill_barrier`` before each
-prefill, then per step ``pre_step``, the decode dispatch,
+prefill, then per step ``pre_step``, ``ResilientDecode.react`` (which
+follows the store's degradation ladder), the decode dispatch,
 ``post_dispatch``, the token sync and ``next_target``; the store's
-counters fold into ``ServeMetrics.offload_tel`` once per step.
+counters fold into ``ServeMetrics.offload_tel`` once per step, and its
+link watchdog's report into ``ServeMetrics.links`` at the end of a run
+(continuous) or of a wave.
 """
 from __future__ import annotations
 
@@ -88,11 +91,22 @@ class ServeMetrics:
     requests: int = 0                   # finished requests
     # physical-offload counters folded from ExpertStore.drain()
     offload_tel: dict = field(default_factory=dict)
+    # per-link watchdog counter snapshots keyed by link name ("host>0"):
+    # monotonic totals from LinkWatchdog.report(), the latest one wins
+    links: dict = field(default_factory=dict)
     dali: TelemetryAggregator = field(default_factory=TelemetryAggregator)
 
     def fold_offload(self, deltas: dict):
         for k, v in deltas.items():
             self.offload_tel[k] = self.offload_tel.get(k, 0) + v
+
+    def fold_links(self, links: Optional[dict]):
+        """Merge per-link watchdog reports (``ExpertStore.health()
+        ["links"]``): cumulative snapshots, so a merge replaces per link."""
+        if not links:
+            return
+        for name, rep in links.items():
+            self.links[name] = dict(rep)
 
     def fallback_rate(self) -> float:
         """Miss (token, k) rows per finished request."""
@@ -114,6 +128,21 @@ class ServeMetrics:
             ot = self.offload_tel
             s += (f" | fb_rows/req={self.fallback_rate():.2f}"
                   f" fetches={ot.get('fallback_fetches', 0)}")
+            extras = [(k, ot[k]) for k in ("retries", "stage_aborts",
+                                           "corrupt_caught",
+                                           "restaged_rows", "little_steps")
+                      if ot.get(k)]
+            if extras:
+                s += " " + " ".join(f"{k}={v}" for k, v in extras)
+        hot = [(n, r) for n, r in sorted(self.links.items())
+               if r.get("refit_rejections") or r.get("degrade_events")
+               or r.get("deadline_misses")]
+        if hot:
+            s += " | links " + " ".join(
+                f"{n}[miss={r.get('deadline_misses', 0)}"
+                f" refit={r.get('refits', 0)}"
+                f"/rej={r.get('refit_rejections', 0)}"
+                f" degr={r.get('degrade_events', 0)}]" for n, r in hot)
         return s
 
 
@@ -141,7 +170,8 @@ class _Server:
     def __init__(self, params, cfg: Optional[ModelConfig] = None,
                  batch_size: int = 8, max_len: int = 256, eos_id: int = 1,
                  dali_cfg=None, res_vecs=None, min_bucket: int = 16,
-                 policy=None, offload: str = "modeled", device="cuda",
+                 policy=None, offload: str = "modeled", faults=None,
+                 device="cuda",
                  resolved: Optional[ResolvedServe] = None):
         if resolved is None:
             if cfg is None:
@@ -152,7 +182,7 @@ class _Server:
                 cfg=cfg, server=self.preset, policy=policy,
                 dali_cfg=dali_cfg, batch_size=batch_size, max_len=max_len,
                 eos_id=eos_id, min_bucket=min_bucket,
-                offload=OffloadSpec(mode=offload),
+                offload=OffloadSpec(mode=offload, faults=faults),
                 device=device).resolve(params)
         spec = resolved.spec
         self._resolved = resolved
@@ -170,7 +200,9 @@ class _Server:
         self.min_bucket = spec.min_bucket
         self.queue: deque[Request] = deque()
         self.metrics = ServeMetrics()
-        self._decode = resolved.decode_step()
+        # the decode follows the store's degradation ladder: healthy,
+        # degraded and little variants, switched by react()
+        self._decode = resolved.resilient_decode()
 
     def submit(self, req: Request):
         if not req.submitted_at:
@@ -276,6 +308,7 @@ class ContinuousBatchServer(_Server):
             if self.store is not None:
                 state["offload"] = self.store.pre_step(
                     state["offload"], self.offload, pool_target)
+                self._decode.react()     # follow the degradation ladder
             state, _, tel = self._decode(self.params, state, self.res_vecs)
             if self.store is not None:
                 self.store.post_dispatch(self.offload, pool_target)
@@ -303,6 +336,7 @@ class ContinuousBatchServer(_Server):
         self.metrics.dali.end_epoch()
         if self.store is not None:
             self.metrics.fold_offload(self.store.drain())
+            self.metrics.fold_links(self.store.health().get("links"))
         self.metrics.requests += len(finished)
         return finished
 
@@ -386,9 +420,7 @@ class BatchServer(_Server):
             if self.store is not None:
                 state["offload"] = self.store.pre_step(
                     state["offload"], self.offload, pool_target)
-            # (the reference switches decode variants here, following the
-            # store's degradation ladder; that ladder comes with fault
-            # tolerance, so the plain decode step runs)
+                self._decode.react()     # follow the degradation ladder
             state, _, tel = self._decode(self.params, state, self.res_vecs)
             if self.store is not None:
                 self.store.post_dispatch(self.offload, pool_target)
@@ -414,6 +446,7 @@ class BatchServer(_Server):
         self.metrics.dali.end_epoch()
         if self.store is not None:
             self.metrics.fold_offload(self.store.drain())
+            self.metrics.fold_links(self.store.health().get("links"))
         self.metrics.waves += 1
         self.metrics.requests += len(wave)
         for r in wave:

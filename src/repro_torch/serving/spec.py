@@ -7,9 +7,11 @@ the device.  ``ServeSpec.resolve(params)`` validates both once, resolves the
 policy, builds the ``ExpertStore`` for the physical modes (blocking,
 overlap, pipelined), strips the routed expert stacks from the served
 params, and returns a ``ResolvedServe`` whose factories build the step
-functions, the serve state and the server.  The reference's fault
-injection, cost-model and topology options come with fault tolerance
-(ROADMAP.md queue item 3) and raise ``NotImplementedError``.
+functions (``resilient_decode`` follows the store's degradation ladder),
+the serve state and the server.  ``OffloadSpec.faults`` arms the store's
+fault injection, link watchdog and ladder; ``topology`` prices links
+between devices and comes with expert parallelism, so it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,11 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
 
 OFFLOAD_MODES = ("modeled", "blocking", "overlap", "pipelined")
+
+TOPOLOGY_UNPORTED = (
+    "OffloadSpec(topology=...) prices the links between devices; it is "
+    "ported with expert parallelism (ROADMAP.md queue 1, \"Expert "
+    "parallelism\")")
 
 # the offload <-> policy contract, in the reference's words
 OFFLOAD_POLICY_ERROR = (
@@ -44,14 +51,19 @@ class OffloadSpec:
                     (pinned host store + device slot pool, see
                     serving/expert_store.py)
     fallback      — miss tier: "fetch" (bit-exact demand fetch) | "host"
-                    (CPU FFN); "little" comes with fault tolerance
+                    (CPU FFN) | "little" (device-resident int8 twins)
     prefill_rows  — experts per wave a prefill sweep streams (None = pool
                     size)
     strip_params  — remove the expert stacks from the served params (None =
                     auto: stripped for physical modes)
-    faults / cost_model / topology — the reference's fault-injection
-                    options; ported with fault tolerance (ROADMAP.md queue
-                    item 3)
+    faults        — a fault schedule (serving/faults.py, e.g.
+                    "link_degrade:x12@8-26" or a bare preset name): arms
+                    fault injection, the link watchdog and the degradation
+                    ladder (physical modes only)
+    cost_model    — the CostModel whose link constants budget the watchdog
+                    (default: the config's, LOCAL_PC's link)
+    topology      — per-link constants between devices: raises
+                    ``NotImplementedError`` (expert parallelism)
     """
     mode: str = "modeled"
     fallback: str = "fetch"
@@ -120,13 +132,18 @@ def build_store(offload: str, params, cfg, policy, fallback: str = "fetch",
     The pool is sized to the policy's largest effective resident set
     (cache ∪ prefetch) plus one plan of slack, the per-step copy budget to
     its churn — the reference's sizing."""
-    from repro_torch.serving.expert_store import FAULT_SEAM, ExpertStore
+    from repro_torch.serving.expert_store import ExpertStore
     if offload not in OFFLOAD_MODES:
         raise ValueError(f"offload must be one of "
                          f"{'|'.join(OFFLOAD_MODES)}, got {offload!r}")
-    if any(x is not None for x in (faults, cost_model, topology)):
-        raise NotImplementedError(FAULT_SEAM)
+    if topology is not None:
+        raise NotImplementedError(TOPOLOGY_UNPORTED)
     if offload == "modeled":
+        if faults is not None:
+            raise ValueError('faults need a physical offload mode '
+                             '("blocking" | "overlap" | "pipelined"); '
+                             '"modeled" has no streaming path to inject '
+                             'into')
         return None
     require_offload_policy(policy, cfg)
     dcfg = policy.dcfg
@@ -135,8 +152,8 @@ def build_store(offload: str, params, cfg, policy, fallback: str = "fetch",
         params, cfg,
         n_slots=min(cfg.moe.n_routed,
                     dcfg.cache_size + dcfg.prefetch_size + moves),
-        max_moves=moves, fallback=fallback, mode=offload,
-        prefill_rows=prefill_rows, device=device)
+        max_moves=moves, fallback=fallback, mode=offload, faults=faults,
+        cost_model=cost_model, prefill_rows=prefill_rows, device=device)
 
 
 @dataclasses.dataclass
@@ -156,6 +173,15 @@ class ResolvedServe:
                                 moe_capacity=s.moe_capacity,
                                 sample=s.sample, temperature=s.temperature,
                                 offload=self.store)
+
+    def resilient_decode(self):
+        """The decode the servers call: variants switched by the store's
+        degradation ladder (only the healthy one without faults)."""
+        from repro_torch.serving.steps import ResilientDecode
+        s = self.spec
+        return ResilientDecode(s.cfg, moe_capacity=s.moe_capacity,
+                               sample=s.sample, temperature=s.temperature,
+                               policy=self.policy, offload=self.store)
 
     def prefill_step(self):
         """Wave prefill; with a physical store the sweep streams through the

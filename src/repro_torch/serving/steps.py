@@ -1,6 +1,8 @@
 """Serving step functions (port of ``repro/serving/steps.py``): the wave
 prefill, the admission prefill, admission into the slot table, retirement,
-and the decode step with the in-graph offload policy, greedy or sampled.
+the decode step with the in-graph offload policy, greedy or sampled, and
+``ResilientDecode``, which switches decode variants as an expert store's
+degradation ladder moves.
 
 Two serve-state layouts share the same decode step, as in the reference:
 
@@ -68,17 +70,50 @@ def resolve_policy(policy, cfg: ModelConfig,
     return policy
 
 
-def _slot_kw(offload, off, **kw):
+class _FallbackView:
+    """Proxy over an ExpertStore presenting another miss ``fallback``: one
+    store backs several decode variants (the full-quality "fetch" and the
+    ladder's "little" rung) without being rebuilt.  Every other attribute
+    (methods, counters) is the store's own."""
+
+    def __init__(self, store, fallback: str):
+        from repro_torch.serving.expert_store import FALLBACKS
+        if fallback not in FALLBACKS:
+            raise ValueError(f"fallback must be one of "
+                             f"{'|'.join(FALLBACKS)}, got {fallback!r}")
+        self._store = store
+        self.fallback = fallback
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+
+def _offload_consts(offload, fallback):
+    """What a slot-reading step closes over: the store, or a view of it with
+    another ``fallback``.  An effective "little" builds the store's int8
+    twins now (the first entry into the ladder's little rung, or a store
+    built with ``fallback="little"``)."""
+    if offload is None:
+        return None
+    slot_fetch = offload
+    if fallback is not None and fallback != offload.fallback:
+        slot_fetch = _FallbackView(offload, fallback)
+    if slot_fetch.fallback == "little":
+        offload.little_view()
+    return slot_fetch
+
+
+def _slot_kw(offload, slot_fetch, off, **kw):
     """The slot-path arguments of ``apply_model`` for a store (none
     without one)."""
     if offload is None:
         return {}
-    return dict(expert_slots=offload.build_view(off), slot_fetch=offload,
+    return dict(expert_slots=offload.build_view(off), slot_fetch=slot_fetch,
                 **kw)
 
 
 def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
-                      offload=None):
+                      offload=None, fallback=None):
     """Wave prefill: returns prefill(params, tokens (B, S), caches,
     off=None) -> (next_token (B, 1), caches), the caches written in place.
     The prompts arrive LEFT-padded to one length S and every row runs at
@@ -86,7 +121,9 @@ def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
 
     ``offload`` (an ``ExpertStore``) runs the sweep through the slot pool
     (call with ``off=state["offload"]``; params may be stripped of expert
-    stacks), bit-equal to the full-resident sweep."""
+    stacks), bit-equal to the full-resident sweep; ``fallback`` overrides
+    the store's miss tier for this step."""
+    slot_fetch = _offload_consts(offload, fallback)
 
     def prefill(params, tokens, caches, off=None):
         S = tokens.shape[1]
@@ -94,14 +131,15 @@ def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
         logits, caches, _ = apply_model(
             params, tokens, cfg, positions=positions, caches=caches,
             moe_capacity=moe_capacity, last_logit_only=True,
-            **_slot_kw(offload, off, slot_phase="prefill"))
+            **_slot_kw(offload, slot_fetch, off, slot_phase="prefill"))
         return logits[:, -1:].argmax(-1).to(torch.int32), caches
 
     return prefill
 
 
 def make_admit_prefill(cfg: ModelConfig,
-                       moe_capacity: Optional[int] = None, offload=None):
+                       moe_capacity: Optional[int] = None, offload=None,
+                       fallback=None):
     """Prefill for admission into a continuous batch.  The prompt arrives
     RIGHT-padded to a bucket length, so positions 0..length-1 are real and
     the first token is sampled from the logit at ``length - 1``.  Returns
@@ -111,7 +149,9 @@ def make_admit_prefill(cfg: ModelConfig,
     ``offload`` (an ``ExpertStore``) runs the sweep through the slot pool
     (call with ``off=state["offload"]``; params may be stripped of expert
     stacks): right-pad tokens route and stream like real ones, as in the
-    full-resident admission."""
+    full-resident admission.  ``fallback`` overrides the store's miss
+    tier for this step."""
+    slot_fetch = _offload_consts(offload, fallback)
 
     def prefill(params, tokens, caches, length: int, off=None):
         S = tokens.shape[1]
@@ -119,7 +159,7 @@ def make_admit_prefill(cfg: ModelConfig,
         logits, caches, _ = apply_model(
             params, tokens, cfg, positions=positions, caches=caches,
             moe_capacity=moe_capacity, logit_index=length - 1,
-            **_slot_kw(offload, off, slot_phase="prefill"))
+            **_slot_kw(offload, slot_fetch, off, slot_phase="prefill"))
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, caches
 
@@ -168,7 +208,7 @@ def sample_tokens(logits, temperature: float, generator):
 def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
                      moe_capacity: Optional[int] = None,
                      sample: bool = False, temperature: float = 1.0,
-                     policy=None, offload=None):
+                     policy=None, offload=None, fallback=None):
     """Returns decode(params, state, res_vecs=None) -> (state', logits,
     telemetry).  ``policy`` (name, policy instance or None — see
     ``resolve_policy``) is the offload scheduler run after the forward;
@@ -185,12 +225,17 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
     ``state["active"]``, so the policy sees the actual per-step token mix; a
     scalar ``pos`` decodes the wave way, every row at the shared position,
     with nothing masked (every row counts, finished requests' rows too, as
-    in the reference)."""
+    in the reference).
+
+    ``fallback`` overrides the store's miss tier for this decode variant
+    (see ``_FallbackView``): the ladder's "little" rung reads the store's
+    int8 twins."""
     from repro_torch.serving.spec import require_offload_policy
     policy = resolve_policy(policy, cfg, dali_cfg)
     use_policy = policy.schedules and cfg.moe is not None
     if offload is not None:
         require_offload_policy(policy, cfg)
+    slot_fetch = _offload_consts(offload, fallback)
 
     def decode(params, state, res_vecs=None):
         if state["pos"].dim() == 1:
@@ -207,7 +252,8 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
             params, state["tokens"], cfg, positions=positions,
             caches=state["caches"], moe_capacity=moe_capacity,
             trace=use_policy,
-            **_slot_kw(offload, state.get("offload"), slot_live=active))
+            **_slot_kw(offload, slot_fetch, state.get("offload"),
+                       slot_live=active))
         if sample:
             nxt = sample_tokens(logits[:, -1], temperature, state["rng"])
         else:
@@ -228,6 +274,73 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
         return new_state, logits, telemetry
 
     return decode
+
+
+class ResilientDecode:
+    """Decode-variant switchboard driven by the store's degradation ladder
+    (the reference's DESIGN.md §10).  The serving tier keeps at most three
+    decode variants and calls one per step:
+
+      * ``healthy``  — the base policy, the store's own fallback;
+      * ``degraded`` — the policy re-solved with the watchdog's re-fit
+        ``t_trans`` and no prefetch (``ExpertStore.degraded_policy``);
+      * ``little``   — the degraded policy plus ``fallback="little"``
+        (misses read the int8 twins; the store suspends streaming itself).
+
+    The port's step is eager, so a variant is a closure over a policy and a
+    fallback, built at the first entry into its rung.  The policy state
+    keeps its structure across variants (only cost constants change), so
+    ``state["dali"]`` flows through transitions untouched.  ``react()``
+    aligns the active variant with the ladder after each ``pre_step``;
+    with no ladder (no faults) only the healthy variant ever runs."""
+
+    RUNGS = ("healthy", "degraded", "little")
+
+    def __init__(self, cfg: ModelConfig,
+                 dali_cfg: Optional[DaliConfig] = None,
+                 moe_capacity: Optional[int] = None, sample: bool = False,
+                 temperature: float = 1.0, policy=None, offload=None):
+        self.cfg = cfg
+        self.offload = offload
+        self.policy = resolve_policy(policy, cfg, dali_cfg)
+        self._kw = dict(moe_capacity=moe_capacity, sample=sample,
+                        temperature=temperature)
+        self._variants = {}
+        self.active = "healthy"
+
+    def variant(self, rung: str):
+        """A freshly built decode variant for ``rung`` (not cached)."""
+        if rung not in self.RUNGS:
+            raise ValueError(f"rung must be one of {'|'.join(self.RUNGS)}, "
+                             f"got {rung!r}")
+        if rung == "healthy" or self.offload is None:
+            pol, fb = self.policy, None
+        else:
+            pol = self.offload.degraded_policy(self.policy)
+            fb = "little" if rung == "little" else None
+        return make_decode_step(self.cfg, policy=pol, offload=self.offload,
+                                fallback=fb, **self._kw)
+
+    def react(self):
+        """Align the active variant with the store's ladder state.  Returns
+        the (from, to) rung transition when it changed, None otherwise.
+        Call after ``store.pre_step`` (where the ladder advances) and before
+        the decode."""
+        store = self.offload
+        if store is None or getattr(store, "ladder", None) is None:
+            return None
+        want = store.ladder.state
+        if want == self.active:
+            return None
+        frm, self.active = self.active, want
+        return (frm, want)
+
+    def __call__(self, params, state, res_vecs=None):
+        rung = self.active
+        fn = self._variants.get(rung)
+        if fn is None:
+            fn = self._variants[rung] = self.variant(rung)
+        return fn(params, state, res_vecs)
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -675,3 +675,110 @@ def test_new_models_prefill_through_the_kernels(cuda, arch):
     yc, _ = attn(mixer(cpu), x, cfg, positions=pos)
     yg, _ = attn(mixer(gpu), x.to(cuda), cfg, positions=pos.to(cuda))
     assert _rel_err(yg.cpu(), yc) < BF16_TOL
+
+
+# --------------------------------------------------------------------------
+# fault-tolerant offload streaming on the card
+# --------------------------------------------------------------------------
+
+def _small_bf16_model(seed=0):
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.model import init_model
+    cfg = make_smoke(get_config("mixtral-8x7b")).replace(
+        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_routed=8))
+    params = init_model(cfg, seed=seed, device="cuda")
+    host = init_model(cfg, seed=seed, device="cuda", experts="host")
+    return cfg, params, host
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_checksums_on_the_card_equal_the_cpu(cuda, dtype):
+    from repro_torch.serving.expert_store import row_checksums
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((6, 64, 96)), dtype=dtype)
+    x[0, 0, :3] = torch.tensor([float("nan"), -0.0, float("inf")])
+    for t in (x, x[1:], x.reshape(6, -1)[:, 1:]):      # odd offsets too
+        assert torch.equal(row_checksums(t.to(cuda)).cpu(), row_checksums(t))
+
+
+def test_little_twins_on_the_card_equal_the_cpu(cuda):
+    """The quantizer divides by tensors: CUDA divides by a host scalar
+    through its reciprocal, so the twins would part from the CPU's."""
+    from repro_torch.serving.expert_store import ExpertStore
+    from repro_torch.tree import tree_map
+    cfg, _, host = _small_bf16_model()
+    on_card = ExpertStore(host, cfg, n_slots=3).little_view()
+    on_cpu = ExpertStore(tree_map(lambda t: t.cpu(), host), cfg,
+                         n_slots=3).little_view()
+    for k in on_cpu:
+        assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+
+
+def test_faulted_decode_on_the_card_equals_full_resident(cuda):
+    """Transient, read-error and corrupt-row faults in every mode on the
+    card: retried and restaged, decode equal to full-resident's."""
+    from repro_torch.serving import expert_store as es
+    from repro_torch.serving import steps
+    cfg, params, host = _small_bf16_model()
+    pol = steps.resolve_policy("dali", cfg)
+    slim = es.strip_expert_params(host, cfg)
+    for mode in ("blocking", "overlap", "pipelined"):
+        for faults in ("transient_stall@1-4", "read_error@1-4",
+                       "corrupt_rows@1-6"):
+            store = es.ExpertStore(host, cfg, n_slots=3, mode=mode,
+                                   faults=faults, retry_backoff_s=1e-4)
+            dec_ref = steps.make_decode_step(cfg, policy=pol)
+            dec = steps.ResilientDecode(cfg, policy=pol, offload=store)
+            s_ref = steps.init_serve_state(cfg, 2, 32, policy=pol, device=cuda)
+            s_slot = steps.init_serve_state(cfg, 2, 32, policy=pol,
+                                            device=cuda, offload=store)
+            rng, target = np.random.default_rng(2), None
+            for t in range(8):
+                tok = torch.tensor(rng.integers(1, cfg.vocab, (2, 1)),
+                                   dtype=torch.int32, device=cuda)
+                s_ref["tokens"], s_slot["tokens"] = tok, tok.clone()
+                if t == 2:                     # every plan stages rows
+                    store._cur[:] = -1
+                    store._set_dev_cur(s_slot["offload"], store._cur)
+                s_slot["offload"] = store.pre_step(s_slot["offload"], mode,
+                                                   target)
+                dec.react()
+                s_ref, lg_ref, _ = dec_ref(params, s_ref)
+                s_slot, lg_slot, tel = dec(slim, s_slot)
+                store.post_dispatch(mode, target)
+                target = store.next_target(s_slot, tel)
+                assert torch.equal(lg_ref, lg_slot), (mode, faults, t)
+            st = store.stats()
+            assert st["stage_aborts"] == 0
+            assert st["retries"] + st["corrupt_caught"] > 0, (mode, faults)
+            if faults.startswith("corrupt"):
+                assert st["restaged_rows"] >= st["corrupt_caught"] > 0
+
+
+def test_little_rung_on_the_card_launches_k4_and_stays_close(cuda):
+    from repro_torch.serving import expert_store as es
+    from repro_torch.serving import steps
+    cfg, params, host = _small_bf16_model()
+    pol = steps.resolve_policy("dali", cfg)
+    store = es.ExpertStore(host, cfg, n_slots=3, mode="pipelined",
+                           fallback="little")
+    dec_ref = steps.make_decode_step(cfg, policy=pol)
+    dec = steps.make_decode_step(cfg, policy=pol, offload=store)
+    s_ref = steps.init_serve_state(cfg, 2, 32, policy=pol, device=cuda)
+    s = steps.init_serve_state(cfg, 2, 32, policy=pol, device=cuda,
+                                offload=store)
+    store._cur[:] = -1
+    store._set_dev_cur(s["offload"], store._cur)
+    tok = torch.tensor([[3], [7]], dtype=torch.int32, device=cuda)
+    s_ref["tokens"], s["tokens"] = tok, tok.clone()
+    before = kernels.LAUNCHES["expert_ffn_grouped"]
+    _, lg_ref, _ = dec_ref(params, s_ref)
+    _, lg, _ = dec(es.strip_expert_params(host, cfg), s)
+    torch.cuda.synchronize()
+    # per MoE layer: the pool launch and the launch over the twins' rows
+    assert kernels.LAUNCHES["expert_ffn_grouped"] - before >= 2 * 2
+    assert store.stats()["fallback_rows"] == 2 * 2 * cfg.moe.top_k
+    assert store.stats()["fallback_fetches"] == 0
+    err = float((lg.float() - lg_ref.float()).norm() / lg_ref.float().norm())
+    assert 0.0 < err < 0.2

@@ -15,7 +15,10 @@ policy state carried over with ``repro_torch.bridge``).
   at batch 1 and 4, and after every step the host slot-table mirror and the
   row counters equal the JAX store's;
 * the contract errors: ``policy="none"`` raises the reference's message,
-  the fault seam raises ``NotImplementedError`` naming ROADMAP item 3.
+  ``faults`` on ``"modeled"`` the reference's ``ValueError``, and
+  ``topology`` (links between devices) ``NotImplementedError`` naming
+  expert parallelism; ``faults`` and ``fallback="little"`` resolve and
+  serve in every physical mode (their scenarios: test_torch_faults.py).
 """
 import dataclasses
 
@@ -366,13 +369,34 @@ def test_offload_spec_contract_errors(model):
     with pytest.raises(ValueError, match="modeled"):
         tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
                         offload=tspec.OffloadSpec(mode="bogus")).resolve(tp)
-    for off in (tspec.OffloadSpec(mode="pipelined", faults="read_error"),
-                tspec.OffloadSpec(mode="blocking", fallback="little"),
-                tspec.OffloadSpec(mode="overlap", topology="flat")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue "
-                                                      "item 3"):
-            tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
-                            offload=off).resolve(tp)
+    jc, _, jp, _ = model
+    jpol = jspec.ServeSpec(cfg=jc, policy="dali").resolve(jp).policy
+    with pytest.raises(ValueError) as ref:
+        jspec.build_store("modeled", jp, jc, jpol, faults="read_error")
+    with pytest.raises(ValueError) as got:
+        tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
+                        offload=tspec.OffloadSpec(faults="read_error")
+                        ).resolve(tp)
+    assert str(got.value) == str(ref.value)
+    with pytest.raises(NotImplementedError, match="Expert parallelism"):
+        tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
+                        offload=tspec.OffloadSpec(mode="overlap",
+                                                  topology="flat")
+                        ).resolve(tp)
+    # the fault seam and the little tier resolve and serve in every mode
+    for mode in MODES:
+        for off in (tspec.OffloadSpec(mode=mode, faults="read_error@0-3"),
+                    tspec.OffloadSpec(mode=mode, fallback="little")):
+            rs = tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
+                                 batch_size=2, max_len=MAX_LEN,
+                                 eos_id=NO_EOS, offload=off).resolve(tp)
+            assert (rs.store.injector is not None) == (off.faults is not None)
+            assert (rs.store._little is not None) == (off.fallback
+                                                      == "little")
+            srv = rs.server()
+            for r in _requests(tsched, tc.vocab)[:2]:
+                srv.submit(r)
+            assert len(srv.run()) == 2
     with pytest.raises(ValueError, match="fetch"):
         tstore.ExpertStore(tp, tc, n_slots=4, fallback="bogus")
 

@@ -388,11 +388,18 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(model):
 
 def test_unported_options_raise_not_implemented(model):
     _, tc, _, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, \"Expert parallelism\""):
         tspec.ServeSpec(cfg=tc, device="cpu", policy="dali",
                         offload=tspec.OffloadSpec(mode="pipelined",
-                                                  fallback="little")
+                                                  topology="flat")
                         ).resolve(tp)
+    # the little tier is ported: it resolves with its int8 twins built
+    rs = tspec.ServeSpec(cfg=tc, device="cpu", policy="dali",
+                         offload=tspec.OffloadSpec(mode="pipelined",
+                                                   fallback="little")
+                         ).resolve(tp)
+    assert rs.store.little_view()["gate_q"].dtype == torch.int8
     with pytest.raises(tsched.PromptTooLongError):
         tsched.ContinuousBatchServer(tp, tc, max_len=8, device="cpu").submit(
             tsched.Request(rid=0, prompt=np.zeros(8, np.int32)))
