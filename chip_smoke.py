@@ -102,7 +102,26 @@ outside a checkout.  Phases (any failure exits non-zero):
    and fresh requests after recovery must give the fault-free tokens;
    median ms per step per rung, time to recover, little_bytes and peak
    device memory are printed; (d) the launcher with ``--offload
-   pipelined --faults transient_stall --check-exact`` must return.
+   pipelined --faults transient_stall --check-exact`` must return;
+12. long   — prompts past ``MOE_CHUNK_TOKENS``: Mixtral-8x7B at published
+   widths, 8 layers, seed 0, two ``MarkovCorpus`` prompts of 20000 tokens
+   (16 new tokens each, max_len 20018) through ``ContinuousBatchServer``
+   with ``dali`` at batch 2; each admission is one B = 1 prefill of 20018
+   positions, two MoE chunks of 16384 (the second padded and masked).
+   (a) full-resident: K1, K2 ragged at C = 5120 and K3 must launch (counts
+   zeroed just before and read just after); prefill rate, TTFT, decode
+   rate at 20k context and peak device memory are printed; (b) the first
+   admission's prefill with the kernels against the same prefill through
+   the plain versions on the card (the blockwise attention included):
+   first-token logits within 3e-2 relative to max |ref| and the same
+   token; (c) the two requests offloaded (pipelined, fetch tier, cache
+   ratio 0.25, residual vectors calibrated through the slot pool, equal to
+   phase 5's) must give (a)'s tokens;
+13. examples — each of ``repro_torch.examples``' ``train_tiny --tiny`` (its
+   own check that the ce falls), ``quickstart`` (greedy makespan >= the
+   optimal one, the DALI step's hits + misses > 0), ``offload_ablation``
+   (every row, the four ``--offload`` modes' 20 timed steps) and
+   ``serve_moe`` (16 requests) at the reference's defaults.
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -111,11 +130,14 @@ admission bucket (C = 160), and phase 10's shapes: K1's warp variant at
 E = 128 k = 8 and E = 64 k = 6 (T = 8, 256), K2 ragged over the 256-token
 bucket and grouped over a batch-8 decode at d = 2048, f = 768 / 1408, and
 K3 at Qwen3's GQA (D = 128, G = 8) and DeepSeek-V2-Lite's MLA (D = 192,
-the 128-wide values zero-padded), S = 128..512.  Phase 6's full-depth
+the 128-wide values zero-padded), S = 128..512, and phase 12's: K2
+ragged over one 16384-token chunk (C = 5120) and K3 at B = 1, S = 20018
+against its blockwise plain version.  Phase 6's full-depth
 serve calibrates its residual vectors through the slot pool.  Each phase
 prints its seconds.  The second-to-last line is the
 ``kernels`` JSON object, the last line ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -160,6 +182,10 @@ SMOKE_STEPS = 120
 POLICIES = ("static", "all_gpu", "lru", "score", "statistical", "random")
 # phase 10: the paper's other two evaluation models (tag, arch)
 NEW_MODELS = (("qwen3", "qwen3-30b-a3b"), ("deepseek", "deepseek-v2-lite-16b"))
+# phase 12: two prompts of 20000 tokens, each admitted as one B = 1 prefill
+# of max_len = 20018 tokens: two MoE chunks of 16384 (the second with 3634
+# real rows, the rest pad) and K3 over 20018 positions
+LONG_LEN, LONG_MAX, LONG_NEW, LONG_SEED = 20000, 20018, 16, 12
 
 
 def wave_prompts(cfg):
@@ -250,6 +276,17 @@ def rel_err(y, r):
     return float((y - r).abs().max()) / (float(r.abs().max()) + 1e-6)
 
 
+def row_rel_err(y, r):
+    """The largest, over rows (every index but the last), of a row's max
+    |y - r| over that row's max |r|.  Attention outputs shrink along a
+    causal prompt (row i averages i + 1 values), so one scale for the whole
+    output would let the late rows drift by many times their own size; each
+    query row and head is held to its own."""
+    y, r = y.float().flatten(0, -2), r.float().flatten(0, -2)
+    return float(((y - r).abs().amax(-1)
+                  / (r.abs().amax(-1) + 1e-6)).max())
+
+
 # --------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at the main path's shapes
 # --------------------------------------------------------------------------
@@ -260,7 +297,7 @@ def kernel_phase(torch, cfg, wave_S):
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.gating.ops import gating, gating_plain
     from repro_torch.configs import get_config
-    from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.moe import MOE_CHUNK_TOKENS, expert_capacity
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -269,7 +306,8 @@ def kernel_phase(torch, cfg, wave_S):
     E, K, d, f = m.n_routed, m.top_k, cfg.d_model, m.d_expert
     rows = []
 
-    def record(name, shape, err, ok, fn, plain_fn, lib_fn, b, plain_kw=None):
+    def record(name, shape, err, ok, fn, plain_fn, lib_fn, b, plain_kw=None,
+               row_err=None):
         """Time the kernel (``fn``), its plain version and the library call
         by CUDA events and the kernel and library call by device time."""
         ms, dms = cuda_ms(torch, fn), device_ms(torch, fn)
@@ -280,8 +318,11 @@ def kernel_phase(torch, cfg, wave_S):
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "library_device_ms": lib_dms, "bound_ms": b[0],
                      "bound_by": b[1]})
+        if row_err is not None:
+            rows[-1]["row_rel_err"] = row_err
         print(f"kernel {name} [{shape}]: max_abs_err={err:.3e} "
-              f"{'pass' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+              + ("" if row_err is None else f"row_rel_err={row_err:.3e} ")
+              + f"{'pass' if ok else 'FAIL'} kernel_ms={ms:.4f} "
               f"device_ms={dms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} library_device_ms={lib_dms:.4f} "
               f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
@@ -410,6 +451,19 @@ def kernel_phase(torch, cfg, wave_S):
         xe = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
         ffn_case("expert_ffn_ragged", f"{tag}T={T} E={E} C={C} d={d} f={f}",
                  xe, routed_counts(T), None)
+    # phase 12's long prompts: one 16384-token MoE chunk's bucket (C =
+    # 5120), routed top-k (distinct experts per token), from a stream of
+    # its own so that every earlier row keeps its inputs
+    gen12 = torch.Generator(device=dev)
+    gen12.manual_seed(12)
+    T = MOE_CHUNK_TOKENS
+    C = expert_capacity(m, T)
+    idx = torch.rand((T, E), generator=gen12, device=dev).topk(K).indices
+    xe = torch.randn((E, C, d), generator=gen12, device=dev).bfloat16()
+    ffn_case("expert_ffn_ragged", f"long T={T} E={E} C={C} d={d} f={f}", xe,
+             torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32),
+             None)
+    del xe
     G = 2 * K                           # batch 2 on the sparse decode path
     xe = torch.randn((G, 1, d), generator=gen, device=dev).bfloat16()
     ffn_case("expert_ffn_grouped", f"G={G} C=1 d={d} f={f}", xe,
@@ -485,7 +539,8 @@ def kernel_phase(torch, cfg, wave_S):
         r = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = float((o.float() - r.float()).abs().max())
-        ok = rel_err(o, r) < BF16_TOL
+        rerr = row_rel_err(o, r)
+        ok = rerr < BF16_TOL
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2
         record("flash_attention",
@@ -495,7 +550,40 @@ def kernel_phase(torch, cfg, wave_S):
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                bound(B * (2 * S * Hq + 2 * S * Hkv) * D * 2,
-                     4.0 * B * Hq * D * pairs, BF16_FLOP_S))
+                     4.0 * B * Hq * D * pairs, BF16_FLOP_S), row_err=rerr)
+    # -- K3 at phase 12's admission: one 20018-token prompt, against the
+    # blockwise plain version (the dense one would hold 51 GB of scores)
+    # and SDPA restricted to its flash and memory-efficient backends
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S = LONG_MAX
+    q = torch.randn((1, S, Hq, D), generator=gen12, device=dev).bfloat16()
+    k = torch.randn((1, S, Hkv, D), generator=gen12, device=dev).bfloat16()
+    v = torch.randn((1, S, Hkv, D), generator=gen12, device=dev).bfloat16()
+    o = flash_attention(q, k, v, causal=True)
+    r = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((o.float() - r.float()).abs().max())
+    rerr = row_rel_err(o, r)
+    ok = rerr < BF16_TOL
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    del o, r
+
+    def sdpa_long():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    pairs = S * (S + 1) // 2
+    record("flash_attention", f"long B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} "
+           "causal (plain blockwise)", err, ok,
+           lambda: flash_attention(q, k, v, causal=True),
+           lambda: flash_attention_plain(q, k, v, causal=True), sdpa_long,
+           bound((2 * S * Hq + 2 * S * Hkv) * D * 2,
+                 4.0 * Hq * D * pairs, BF16_FLOP_S),
+           plain_kw=dict(budget_s=0.5, max_iters=3), row_err=rerr)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     # -- K3 at phase 10's prefill shapes: Qwen3's GQA (G = 8, D = 128) and
     # DeepSeek-V2-Lite's MLA (Hq = Hkv = 16, q/k 192 wide, the 128-wide
     # values zero-padded to 192 as ``mla_attention`` pads them); the bound
@@ -522,7 +610,8 @@ def kernel_phase(torch, cfg, wave_S):
             r = flash_attention_plain(q, k, v, causal=True)
             torch.cuda.synchronize()
             err = float((o.float() - r.float()).abs().max())
-            ok = rel_err(o, r) < BF16_TOL and not bool(
+            rerr = row_rel_err(o, r)
+            ok = rerr < BF16_TOL and not bool(
                 o[..., vd:].float().abs().sum())
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             pairs = S * (S + 1) // 2
@@ -534,7 +623,8 @@ def kernel_phase(torch, cfg, wave_S):
                    err, ok, lambda: flash_attention(q, k, v, causal=True),
                    lambda: flash_attention_plain(q, k, v, causal=True),
                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True), b)
+                       qt, kt, vt, is_causal=True, enable_gqa=True), b,
+                   row_err=rerr)
             if vd < nD:
                 unpadded = bound(S * (nHq + nHkv) * (nD + vd) * 2,
                                  2.0 * nHq * (nD + vd) * pairs, BF16_FLOP_S)
@@ -2202,6 +2292,224 @@ def faults_phase(torch, kernels, name, batch2, res_vecs):
     return ok, little_counts or {k: 0 for k in kernels.LAUNCHES}
 
 
+# --------------------------------------------------------------------------
+# phase 12: prompts past MOE_CHUNK_TOKENS
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_launches():
+    """Route every kernel wrapper's launch on CUDA tensors to its plain
+    PyTorch version (on the same tensors, on the card) for the duration."""
+    from repro_torch.kernels.expert_ffn import ops as ffn_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.gating import ops as gating_ops
+    saved = gating_ops._launch, ffn_ops._launch, attn_ops._launch
+    gating_ops._launch = gating_ops.gating_plain
+    ffn_ops._launch = (lambda xe, wg, wu, wd, counts, expert_ids, act:
+                       ffn_ops.expert_ffn_plain(xe, wg, wu, wd, counts,
+                                                expert_ids, act))
+    attn_ops._launch = (lambda q, k, v, causal, window, softcap, scale:
+                        attn_ops.flash_attention_plain(
+                            q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale))
+    try:
+        yield
+    finally:
+        gating_ops._launch, ffn_ops._launch, attn_ops._launch = saved
+
+
+def long_phase(torch, kernels, name, res_vecs):
+    """Mixtral-8x7B at published widths, 8 layers, seed 0 (phase 5's
+    weights, so phase 5's residual vectors): two ``MarkovCorpus`` prompts
+    of 20000 tokens, 16 new tokens each, through ``ContinuousBatchServer``
+    with ``dali`` at batch 2, max_len 20018.  (a) full-resident: K1, K2
+    ragged (at C = 5120) and K3 must launch (counts zeroed just before, read
+    just after); (b) the first admission's prefill with the kernels against
+    the same prefill through the plain versions on the card: first-token
+    logits within 3e-2 relative to max |ref| and the same token; (c) the
+    two requests offloaded (pipelined, fetch tier, cache ratio 0.25,
+    residual vectors calibrated through the slot pool) must give (a)'s
+    tokens.  Returns (ok, (a)'s launch counts)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import (apply_model, experts_to_host,
+                                          init_caches, init_model)
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+
+    t_phase = time.perf_counter()
+    free(torch)
+    cfg = get_config("mixtral-8x7b").replace(n_layers=8)
+    params = init_model(cfg, seed=0, device="cuda")
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(LONG_SEED)
+    prompts = [corpus.sample(rng, LONG_LEN) for _ in range(2)]
+    dcfg = default_dali_config(cfg, cache_ratio=0.25)
+
+    def spec(mode):
+        return ServeSpec(cfg=cfg, policy="dali", dali_cfg=dcfg, batch_size=2,
+                         max_len=LONG_MAX, eos_id=-1,
+                         offload=OffloadSpec(mode=mode))
+
+    # (a) -- full-resident; the ragged K2 buckets' capacities are recorded
+    buckets = []
+    real_ffn = moe_mod.expert_ffn
+
+    def ffn_seen(xe, *a, counts=None, expert_ids=None, **kw):
+        if counts is not None and expert_ids is None:
+            buckets.append(xe.shape[1])
+        return real_ffn(xe, *a, counts=counts, expert_ids=expert_ids, **kw)
+
+    server = spec("modeled").resolve(params).server(res_vecs=res_vecs)
+    torch.cuda.reset_peak_memory_stats()
+    moe_mod.expert_ffn = ffn_seen
+    kernels.reset_launch_counts()          # the long-prompt path starts here
+    try:
+        server, done, wall = run_requests(torch, server, prompts, LONG_NEW)
+    finally:
+        moe_mod.expert_ffn = real_ffn
+    counts = kernels.launch_counts()       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    mt = server.metrics
+    want = {r.rid: r.output for r in done}
+    ttft = sorted(r.ttft for r in done)
+    ok_a = (all(counts[k] > 0 for k in ("gating", "expert_ffn_ragged",
+                                        "flash_attention"))
+            and 5120 in buckets
+            and [len(want.get(i, [])) for i in range(2)] == [LONG_NEW] * 2)
+    print(f"long (a) full-resident batch=2, 2 x {LONG_LEN} tokens, max_len "
+          f"{LONG_MAX}: {mt.steps} decode steps in {wall:.2f} s | prefill "
+          f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s, TTFT "
+          f"{ttft[0] * 1e3:.1f} / {ttft[1] * 1e3:.1f} ms, decode "
+          f"{mt.decode_tokens / mt.decode_s:.1f} tok/s at ~{LONG_LEN} "
+          f"context | peak device memory {peak / 1e9:.2f} GB | K2 ragged "
+          f"buckets C={sorted(set(buckets))} | launches {json.dumps(counts)}"
+          f" | {'pass' if ok_a else 'FAIL'} | on {name}", flush=True)
+    del server
+    free(torch)
+
+    # (b) -- the first admission's prefill: kernels against plain versions
+    toks = torch.zeros((1, LONG_MAX), dtype=torch.int32, device="cuda")
+    toks[0, :LONG_LEN] = torch.as_tensor(prompts[0])
+    pos = torch.arange(LONG_MAX, dtype=torch.int32, device="cuda")
+
+    @torch.no_grad()
+    def first_logits():
+        t0 = time.perf_counter()
+        lg, _, _ = apply_model(params, toks, cfg, positions=pos,
+                               caches=init_caches(cfg, 1, LONG_MAX,
+                                                  device="cuda"),
+                               logit_index=LONG_LEN - 1)
+        lg = lg[0, 0, :cfg.vocab].float()
+        torch.cuda.synchronize()
+        return lg, time.perf_counter() - t0
+
+    lk, t_k = first_logits()
+    with plain_launches():
+        lp, t_p = first_logits()
+    err = rel_err(lk, lp)
+    tok_k, tok_p = int(lk.argmax()), int(lp.argmax())
+    ok_b = err < BF16_TOL and tok_k == tok_p == want[0][0]
+    print(f"long (b) first admission's prefill ({LONG_MAX} positions): "
+          f"kernels {t_k:.2f} s, plain versions {t_p:.2f} s; first-token "
+          f"logits rel_err {err:.3e} (< {BF16_TOL}), tokens {tok_k} / "
+          f"{tok_p} (served {want[0][0]}) | {'pass' if ok_b else 'FAIL'} | "
+          f"on {name}", flush=True)
+    del lk, lp
+    free(torch)
+
+    # (c) -- offloaded, calibrated through the slot pool
+    t0 = time.perf_counter()
+    host = experts_to_host(params, cfg, "cuda")
+    del params
+    free(torch)
+    rs = spec("pipelined").resolve(host)
+    calib_rng = np.random.default_rng(1)          # phase 5's calibration
+    calib = np.stack([corpus.sample(calib_rng, 32) for _ in range(8)])
+    slot_rv = slot_res_vecs(rs, cfg, calib)
+    same_rv = bool(np.array_equal(slot_rv, res_vecs))
+    torch.cuda.reset_peak_memory_stats()
+    server, done, wall = run_requests(
+        torch, rs.server(res_vecs=slot_rv), prompts, LONG_NEW)
+    got = {r.rid: r.output for r in done}
+    ok_c = got == want and same_rv
+    offload_line(f"long (c) pipelined fetch batch=2, 2 x {LONG_LEN} tokens "
+                 f"(tokens {'identical to' if got == want else 'DIFFER from'}"
+                 f" (a); slot-pool residual vectors equal phase 5's: "
+                 f"{same_rv})", server, done, wall, name)
+    print(f"long (c): peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{time.perf_counter() - t0:.1f} s with pinning and calibration | "
+          f"{'pass' if ok_c else 'FAIL'}", flush=True)
+    del server, rs, host
+    free(torch)
+    print(f"long: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok_a and ok_b and ok_c, counts
+
+
+# --------------------------------------------------------------------------
+# phase 13: the port's examples on the card
+# --------------------------------------------------------------------------
+
+def examples_phase(torch, kernels, name):
+    """Each example module's ``main`` at the reference's defaults, on the
+    card.  Returns (ok, launch counts over the four)."""
+    import warnings
+
+    from repro_torch.examples import (offload_ablation, quickstart,
+                                      serve_moe, train_tiny)
+
+    t_phase = time.perf_counter()
+    free(torch)
+    kernels.reset_launch_counts()
+    ok = True
+    t0 = time.perf_counter()
+    hist = train_tiny.main(["--tiny"])     # raises unless the ce falls
+    print(f"examples train_tiny --tiny: ce {hist[0]:.3f} -> {hist[-1]:.3f} "
+          f"in {len(hist)} steps, {time.perf_counter() - t0:.1f} s | on "
+          f"{name}", flush=True)
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    good = (q["greedy_makespan"] >= q["optimal_makespan"]
+            and q["hits"] + q["misses"] > 0)
+    ok = ok and good
+    print(f"examples quickstart: greedy {q['greedy_makespan'] * 1e3:.2f} ms "
+          f">= optimal {q['optimal_makespan'] * 1e3:.2f} ms, hits "
+          f"{q['hits']} misses {q['misses']}, "
+          f"{time.perf_counter() - t0:.1f} s | "
+          f"{'pass' if good else 'FAIL'} | on {name}", flush=True)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        a = offload_ablation.main([])
+    modes = [r[0] for r in a["offload"]]
+    good = (len(a["ablation"]) == 4 and len(a["policies"]) == 6
+            and modes == ["modeled", "blocking", "overlap", "pipelined"]
+            and all(r[2] > 0 for r in a["offload"][1:]))
+    ok = ok and good
+    print(f"examples offload_ablation: {len(a['ablation'])} ablation rows, "
+          f"{len(a['policies'])} policy rows, modes {modes} each "
+          f"{offload_ablation.STEPS} timed steps, µs/step "
+          + ", ".join(f"{m} {us:.0f}" for m, us, _, _ in a["offload"])
+          + f", {time.perf_counter() - t0:.1f} s | "
+          f"{'pass' if good else 'FAIL'} | on {name}", flush=True)
+    t0 = time.perf_counter()
+    _, done = serve_moe.main([])
+    good = len(done) == 16
+    ok = ok and good
+    print(f"examples serve_moe: {len(done)} requests served, "
+          f"{time.perf_counter() - t0:.1f} s | {'pass' if good else 'FAIL'}"
+          f" | on {name}", flush=True)
+    counts = kernels.launch_counts()
+    free(torch)
+    print(f"examples: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return ok, counts
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -2291,13 +2599,22 @@ def main():
           f"{json.dumps(fault_counts)}", flush=True)
     launched_ok = launched_ok and fault_counts["expert_ffn_grouped"] > 0
 
+    # -- phase 12: prompts past MOE_CHUNK_TOKENS -----------------------------
+    long_ok, long_counts = long_phase(torch, kernels, card, res_vecs)
+
+    # -- phase 13: the examples ----------------------------------------------
+    examples_ok, example_counts = examples_phase(torch, kernels, card)
+    print(f"examples: kernel launches {json.dumps(example_counts)}",
+          flush=True)
+
     out = []
     for r in rows:
-        # a row at the offload path's, the wave's, training's or a phase-10
-        # model's shapes counts that path's launches
+        # a row at the offload path's, the wave's, training's, a phase-10
+        # model's or the long prompts' shapes counts that path's launches
         tag = r["shape"].split(" ")[0]
         path = (off_counts if r["shape"].startswith(("pool", "decode miss"))
                 else wave_counts if tag == "wave"
+                else long_counts if tag == "long"
                 else train_counts if tag == "train"
                 else model_counts[tag] if tag in model_counts
                 else counts)
@@ -2313,6 +2630,8 @@ def main():
                     **{f"launches_{t}": c[r["name"]]
                        for t, c in model_counts.items()},
                     "launches_faults_little": fault_counts[r["name"]],
+                    "launches_long": long_counts[r["name"]],
+                    "launches_examples": example_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2321,7 +2640,8 @@ def main():
                     "library_device_ms": r["library_device_ms"],
                     **{k: r[k] for k in ("floor_device_ms", "floor_ms",
                                          "floor_bound_ms",
-                                         "unpadded_bound_ms") if k in r}})
+                                         "unpadded_bound_ms", "row_rel_err")
+                       if k in r}})
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     failed = [p for p, ok in (("kernels", kernels_ok),
@@ -2333,6 +2653,8 @@ def main():
                               ("train", train_ok),
                               ("models", models_ok),
                               ("faults", faults_ok),
+                              ("long", long_ok),
+                              ("examples", examples_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

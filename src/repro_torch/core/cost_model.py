@@ -3,7 +3,7 @@
 A copy of the parts of ``repro/core/cost_model.py`` that
 ``default_dali_config``, the simulator, the expert store and its link
 watchdog read: the hardware profile of the paper's platform
-(``LOCAL_PC``), ``CostModel.for_config`` / ``expert_bytes`` /
+(``LOCAL_PC``, the one entry of ``PROFILES``), ``CostModel.for_config`` / ``expert_bytes`` /
 ``trans_time`` and the per-expert times (``t_cpu``, ``t_gpu_compute``,
 ``t_gpu``, ``break_even_workload``), and the warm-up calibration the paper
 describes: ``calibrate_cpu`` fits the CPU line from float32 FFN timings on
@@ -52,6 +52,10 @@ LOCAL_PC = HardwareProfile(
     gpu_overhead_s=15e-6,
     link_latency_s=20e-6,
 )
+
+# the reference's other profile, a TPU host's (``TPU_V5E_HOST``), describes
+# no machine the port runs on and is not carried
+PROFILES = {p.name: p for p in (LOCAL_PC,)}
 
 
 def fit_link_constants(sizes_bytes, times_s,

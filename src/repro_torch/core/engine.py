@@ -1,6 +1,7 @@
-"""DALI engine helpers around the policy step (port of the serving half of
-``repro/core/engine.py``): live-slot workload recounting and the host-side
-telemetry aggregator.
+"""DALI engine helpers around the policy step (port of
+``repro/core/engine.py``): the legacy flat-state wrappers over the
+registered ``dali`` policy (``init_dali_state``, ``dali_schedule``),
+live-slot workload recounting and the host-side telemetry aggregator.
 
 The aggregator is sync-free per step, as in the reference: ``observe``
 keeps a handle to the policy state's device accumulator and the host reads
@@ -11,6 +12,59 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+
+from repro_torch.core.policy import (DaliConfig, Observation,  # noqa: F401
+                                     _init_acc, _random_resident,
+                                     make_policy)
+from repro_torch.device import resolve_device
+
+
+def init_dali_state(dcfg: DaliConfig, gen=None, device="cuda"):
+    """Legacy flat DALI state: {resident, scores, tick, acc}.
+
+    ``resident`` (L, E) bool is the cache seeded with ``cache_size`` random
+    experts per layer, drawn from ``gen`` (a ``torch.Generator`` on
+    ``device``; default: one seeded with 0; the draws differ from the
+    reference's ``jax.random``).  ``acc`` is the device-side telemetry
+    accumulator that ``TelemetryAggregator`` drains.  New code builds a
+    policy's state with ``make_policy(...).init()``."""
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    L, E = dcfg.n_moe_layers, dcfg.n_experts
+    return {
+        "resident": _random_resident(dcfg, gen, dev),
+        "scores": torch.zeros((L, E), dtype=torch.float32, device=dev),
+        "tick": torch.zeros((), dtype=torch.int32, device=dev),
+        "acc": _init_acc(dev),
+    }
+
+
+def dali_schedule(state, workloads, gate_in, routers, res_vecs,
+                  dcfg: DaliConfig, top_k: int,
+                  router_type: str = "softmax_topk", token_mask=None):
+    """One serve step of DALI scheduling on the legacy flat state (a
+    wrapper over the registered "dali" policy).  workloads (L, E) int;
+    gate_in (L, T, d); routers (L, d, E); res_vecs (L, d); ``token_mask``
+    (T,) bool restricts prefetch prediction to live tokens.  Returns
+    (new_state, telemetry dict) on ``init_dali_state``'s layout."""
+    pol = make_policy("dali", dcfg, top_k=top_k, router_type=router_type)
+    pstate = {"resident": state["resident"],
+              "cache": {"scores": state["scores"]},
+              "prefetch": {},
+              "tick": state["tick"]}
+    if "acc" in state:
+        pstate["acc"] = state["acc"]
+    obs = Observation(gate_in=gate_in, routers=routers, res_vecs=res_vecs,
+                      token_mask=token_mask)
+    new, decisions = pol.step(pstate, workloads, obs)
+    out = {"resident": new["resident"],
+           "scores": new["cache"]["scores"],
+           "tick": new["tick"]}
+    if "acc" in new:
+        out["acc"] = new["acc"]
+    return out, decisions.tel
 
 
 def masked_workloads(topk_idx, n_experts: int, token_mask):

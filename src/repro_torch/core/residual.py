@@ -1,5 +1,6 @@
-"""Offline residual-vector calibration (paper §4.2, Eq. 11); a copy of
-``repro/core/residual.py::calibrate_residuals``.
+"""Offline residual-vector calibration (paper §4.2, Eq. 11) and the
+per-token cosine similarity of feature matrices (Table 8); a copy of
+``repro/core/residual.py``.
 
 ``res_vec^(l) = mean_i( hidden_states_i^(l+1) - hidden_states_i^(l) )``
 over a calibration dataset, where hidden_states^(l) is the input to layer
@@ -33,3 +34,12 @@ def calibrate_residuals(traces: List[RoutingTrace]) -> List[np.ndarray]:
                            - h_l.astype(np.float64)).sum(0)
                 cnt[l] += h_l.shape[0]
     return [(acc[l] / max(cnt[l], 1)).astype(np.float32) for l in range(L)]
+
+
+def cosine_similarity(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean per-token cosine similarity between feature matrices (Table 8)."""
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    num = (a * b).sum(-1)
+    den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12
+    return float((num / den).mean())

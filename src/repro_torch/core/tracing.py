@@ -13,8 +13,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig, scan_pattern
+from repro_torch.models.config import ModelConfig, layer_pattern, scan_pattern
 from repro_torch.models.model import apply_model, init_caches
+
+
+def moe_layer_indices(cfg: ModelConfig) -> List[int]:
+    """Indices of the MoE layers in ``layer_pattern`` order."""
+    return [i for i, (_, mlp) in enumerate(layer_pattern(cfg))
+            if mlp == "moe"]
 
 
 def _np(t):
@@ -63,14 +69,31 @@ class RoutingTrace:
         self.n_tokens = n_tokens
 
 
+def gate_weights(params, cfg: ModelConfig) -> List[np.ndarray]:
+    """Router weight (d, E) per MoE layer, in layer order, as numpy."""
+    prefix_pat, period_pat, n_super = scan_pattern(cfg)
+    out = [_np(params["prefix"][i]["mlp"]["router"])
+           for i, (_, mlp) in enumerate(prefix_pat) if mlp == "moe"]
+    stacked = [_np(params["scan"][p]["mlp"]["router"]) if mlp == "moe"
+               else None for p, (_, mlp) in enumerate(period_pat)]
+    for s in range(n_super):
+        out += [stacked[p][s] for p, (_, mlp) in enumerate(period_pat)
+                if mlp == "moe"]
+    return out
+
+
 @torch.no_grad()
 def capture_decode_trace(params, cfg: ModelConfig, prompt_tokens,
                          n_decode: int, max_len: Optional[int] = None,
+                         greedy: bool = True, seed: int = 0,
                          device="cuda", store=None,
                          off=None) -> RoutingTrace:
-    """Prefill the prompt (B, S) then greedily decode ``n_decode`` tokens,
-    recording routing observables at every decode step (the regime the
-    paper's cache and prefetch operate in).
+    """Prefill the prompt (B, S) then decode ``n_decode`` tokens, recording
+    routing observables at every decode step (the regime the paper's cache
+    and prefetch operate in).  ``greedy=False`` draws each token from the
+    softmax of its logits with a ``torch.Generator`` seeded by ``seed``
+    (the reference's ``jax.random.categorical`` draws differ); the first
+    token after the prefill is the argmax either way, as in the reference.
 
     With a physical-offload ``store`` (an ``ExpertStore``) and its device
     state ``off`` (``state["offload"]``), ``params`` may be stripped of the
@@ -90,13 +113,36 @@ def capture_decode_trace(params, cfg: ModelConfig, prompt_tokens,
     trace = RoutingTrace(cfg)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     logits, caches, _ = apply_model(params, tokens, cfg, positions=pos,
-                                    caches=caches, trace=True, **slot_kw)
+                                    caches=caches, last_logit_only=True,
+                                    **slot_kw)
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    gen = None
+    if not greedy:
+        from repro_torch.serving.steps import sample_tokens
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     for t in range(n_decode):
         pos = torch.arange(S + t, S + t + 1, dtype=torch.int32, device=dev)
         logits, caches, infos = apply_model(params, tok, cfg, positions=pos,
                                             caches=caches, trace=True,
                                             **slot_kw)
         trace.append_step(flatten_moe_infos(infos, cfg), n_tokens=B)
-        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        if greedy:
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        else:
+            tok = sample_tokens(logits[:, -1], 1.0, gen)
+    return trace
+
+
+@torch.no_grad()
+def capture_prefill_trace(params, cfg: ModelConfig, tokens,
+                          device="cuda") -> RoutingTrace:
+    """One full-sequence forward of ``tokens`` (B, S): the prefill phase's
+    routing observables as a one-step trace."""
+    tokens = torch.as_tensor(np.asarray(tokens), device=resolve_device(device))
+    _, _, infos = apply_model(params, tokens, cfg, trace=True,
+                              last_logit_only=True)
+    trace = RoutingTrace(cfg)
+    trace.append_step(flatten_moe_infos(infos, cfg),
+                      n_tokens=int(np.prod(tokens.shape)))
     return trace

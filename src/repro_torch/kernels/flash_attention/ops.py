@@ -2,7 +2,11 @@
 query i at key position Sk - Sq + i; ``csrc/flash_attention.cu``.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
-``flash_attention_plain`` (dense softmax, float32) for CPU tensors.
+``flash_attention_plain`` (float32 softmax) for CPU tensors.  The plain
+version builds the whole score matrix below ``BLOCKWISE_KV_THRESHOLD``
+keys and attends blockwise at or above it (``mha_blockwise``, the
+reference's ``_mha_blockwise``: an online softmax over blocks of keys,
+query slab by query slab), so its memory stays bounded at long prompts.
 q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype;
 the kernel takes D % 16 == 0 up to ``MAX_D`` = 256.
 When autograd needs a gradient (training on the card) the launch runs
@@ -20,32 +24,118 @@ from repro_torch import kernels
 from repro_torch.kernels.build import check, library
 
 NEG_INF = -1e30
+# the reference's memory-bounded path (repro/models/attention.py:84-86,
+# :120): at or above this many keys a multi-query attention runs an online
+# softmax over blocks of BLOCKWISE_KV_BLOCK keys, BLOCKWISE_Q_CHUNK query
+# rows at a time; read at call time, so a test can make them small
+BLOCKWISE_KV_THRESHOLD = 4096
+BLOCKWISE_KV_BLOCK = 1024
+BLOCKWISE_Q_CHUNK = 2048
 # the widest head the CUDA kernel takes (four 64-column slabs), the Pallas
 # kernel's range; MLA's q/k heads are 192 wide
 MAX_D = 256
 
 
+def pos_rows(pos):
+    """Normalise a position vector to per-row form (Bm, S), Bm in {1, B}."""
+    return pos if pos.dim() == 2 else pos[None]
+
+
+def attn_mask(q_pos, k_pos, *, causal: bool, window: int):
+    """Validity mask (Bm, Sq, Sk) from per-row positions; Bm broadcasts."""
+    qp = pos_rows(q_pos)[:, :, None]
+    kp = pos_rows(k_pos)[:, None, :]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window:
+        valid = valid & (kp > qp - window)
+    return valid
+
+
+def mha_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
+                  softcap: float, scale: float):
+    """Online-softmax attention over blocks of ``BLOCKWISE_KV_BLOCK`` keys,
+    ``BLOCKWISE_Q_CHUNK`` query rows at a time (the reference's
+    ``_mha_blockwise``): O(slab x block) float32 scores instead of
+    O(Sq x Sk).  q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv),
+    positions (S,) or (B, S) -> (B, Sq, Hq * Dv) in q's dtype.  Unlike the
+    reference, a query run that the slab does not divide is cut into
+    slabs too (the last one shorter): each query row's arithmetic is the
+    same either way."""
+    q_pos, k_pos = pos_rows(q_pos), pos_rows(k_pos)
+    qc = BLOCKWISE_Q_CHUNK
+    return torch.cat([
+        _blockwise_slab(q[:, i:i + qc], k, v, q_pos[:, i:i + qc], k_pos,
+                        causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        for i in range(0, q.shape[1], qc)], dim=1)
+
+
+def _blockwise_slab(q, k, v, q_pos, k_pos, *, causal, window, softcap,
+                    scale):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    m = q.new_full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((B, Hkv, G, Sq, Dv), dtype=torch.float32)
+    block = BLOCKWISE_KV_BLOCK
+    for s0 in range(0, Sk, block):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                         k[:, s0:s0 + block].float()) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        valid = attn_mask(q_pos, k_pos[:, s0:s0 + block], causal=causal,
+                          window=window)
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, v[:, s0:s0 + block].float())
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]                 # (B,K,G,Sq,Dv)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq * Dv).to(q.dtype)
+
+
+def mha(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
+        softcap: float, scale: float):
+    """q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), positions
+    (S,) or (B, S) -> (B, Sq, Hq * Dv) in q's dtype; float32 softmax over
+    the whole score matrix, or blockwise (``mha_blockwise``) for a
+    multi-query attention over ``BLOCKWISE_KV_THRESHOLD`` keys or more, as
+    the reference's ``_mha`` does.  Decode (Sq = 1) stays dense."""
+    if q.shape[1] > 1 and k.shape[1] >= BLOCKWISE_KV_THRESHOLD:
+        return mha_blockwise(q, k, v, q_pos, k_pos, causal=causal,
+                             window=window, softcap=softcap, scale=scale)
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = attn_mask(q_pos, k_pos, causal=causal, window=window)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, Hq * v.shape[-1]).to(q.dtype)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, scale: float | None = None):
+    """The kernel's plain version: ``mha`` with query i at key position
+    Sk - Sq + i -> (B, Sq, Hq, Dv)."""
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
+    Sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     q_pos = torch.arange(Sk - Sq, Sk, device=q.device)
     k_pos = torch.arange(Sk, device=q.device)
-    qg = q.reshape(B, Sq, Hkv, G, D).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        valid &= k_pos[None, :] <= q_pos[:, None]
-    if window:
-        valid &= k_pos[None, :] > q_pos[:, None] - window
-    s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    return mha(q, k, v, q_pos, k_pos, causal=causal, window=window,
+               softcap=softcap, scale=scale).reshape(B, Sq, Hq, -1)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -72,6 +162,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention's CUDA kernel needs D % 16 == 0, "
                          f"D <= {MAX_D} and (Hq / Hkv) dividing 64; got D={D} "
                          f"Hq={Hq} Hkv={Hkv}")
+    if max(B, Sq, k.shape[1], Hq * D) >= 2**31:
+        raise ValueError("flash_attention's CUDA kernel indexes positions "
+                         "and head columns in 32 bits")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention's CUDA kernel needs 16-byte-"

@@ -1,0 +1,54 @@
+"""Parameter count of a model configuration (port of
+``repro/launch/sharding.py::estimate_params``).
+
+The rest of the reference module lays parameters and activations out on a
+TPU mesh for GSPMD (logical axis rules, ``hint``, the auto-sharding
+plan); its torch counterpart is part of "XLA-bound tooling" (ROADMAP.md
+queue 1) and is not ported.
+"""
+from __future__ import annotations
+
+from repro_torch.models.config import ModelConfig, layer_pattern
+
+
+def estimate_params(cfg: ModelConfig) -> float:
+    """The parameter count of ``cfg``, computed from its widths: embedding
+    (and unembedding unless tied), every layer's mixer and MLP (routed and
+    shared experts, router), and the encoder of an encoder-decoder."""
+    d = cfg.d_model
+    total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    for mixer, mlp in layer_pattern(cfg):
+        if mixer == "mamba":
+            mb = cfg.mamba
+            din = mb.d_inner(d)
+            total += 2 * d * din + din * d + 2 * d * mb.n_groups * mb.d_state
+        elif mixer in ("attn", "attn_local", "attn_global", "cross",
+                       "self_cross"):
+            a = cfg.attn
+            hd = cfg.head_dim()
+            if a.mla is not None:
+                ml = a.mla
+                total += d * a.n_heads * (ml.qk_nope_head_dim
+                                          + ml.qk_rope_head_dim)
+                total += d * (ml.kv_lora_rank + ml.qk_rope_head_dim)
+                total += ml.kv_lora_rank * a.n_heads * (ml.qk_nope_head_dim
+                                                        + ml.v_head_dim)
+                total += a.n_heads * ml.v_head_dim * d
+            else:
+                total += d * hd * (2 * a.n_heads + 2 * a.n_kv_heads)
+            if mixer == "self_cross":
+                total += d * hd * 4 * a.n_heads
+        if mlp == "dense":
+            total += d * cfg.d_ff * (3 if cfg.glu else 2)
+        elif mlp == "moe":
+            m = cfg.moe
+            de = m.d_expert or cfg.d_ff
+            total += m.n_routed * 3 * d * de + d * m.n_routed
+            if m.n_shared:
+                total += 3 * d * (m.d_shared or m.n_shared * de)
+    if cfg.encoder is not None:
+        a = cfg.attn
+        hd = cfg.head_dim()
+        per = d * hd * 4 * a.n_heads + d * cfg.d_ff * (3 if cfg.glu else 2)
+        total += cfg.encoder.n_layers * per
+    return float(total)

@@ -20,10 +20,12 @@ Prefill (S > 1) runs the flash-attention kernel K3 over the fresh keys and
 values: GQA's at its head width, MLA's over the decompressed per-head
 keys of width ``qk_nope + qk_rope`` (192 for DeepSeek-V2-Lite) with the
 values zero-padded to that width and the output sliced back, since K3
-has one head width D as the Pallas kernel has.  Decode attends over the
-cache in plain PyTorch, as the JAX package does it outside any Pallas
-kernel (K3 has no per-row position mask); MLA's absorbed decode attends
-in the latent space in float32.
+has one head width D as the Pallas kernel has.  ``_mha`` (the float32
+attention of decode and of K3's plain version) attends blockwise from
+``BLOCKWISE_KV_THRESHOLD`` keys on, as the reference's does.  Decode
+attends over the cache in plain PyTorch, as the JAX package does it
+outside any Pallas kernel (K3 has no per-row position mask); MLA's
+absorbed decode attends in the latent space in float32.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.flash_attention.ops import attn_mask as _attn_mask
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import mha as _mha
+from repro_torch.kernels.flash_attention.ops import pos_rows as _pos_rows
 
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rms_norm_vec, rope_table
@@ -82,40 +87,6 @@ def init_attention(gen, cfg: ModelConfig, device, kind: str = "attn"):
         p["q_norm"] = torch.zeros((hd,), dtype=torch_dtype(dt), device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=torch_dtype(dt), device=device)
     return p
-
-
-def _pos_rows(pos):
-    """Normalise a position vector to per-row form (Bm, S), Bm in {1, B}."""
-    return pos if pos.dim() == 2 else pos[None]
-
-
-def _attn_mask(q_pos, k_pos, *, causal: bool, window: int):
-    """Validity mask (Bm, Sq, Sk) from per-row positions; Bm broadcasts."""
-    qp = _pos_rows(q_pos)[:, :, None]
-    kp = _pos_rows(k_pos)[:, None, :]
-    valid = kp >= 0
-    if causal:
-        valid = valid & (kp <= qp)
-    if window:
-        valid = valid & (kp > qp - window)
-    return valid
-
-
-def _mha(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
-         softcap: float, scale: float):
-    """q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) -> (B, Sq, Hq*D); float32 softmax."""
-    B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    valid = _attn_mask(q_pos, k_pos, causal=causal, window=window)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, Hq * v.shape[-1]).to(q.dtype)
 
 
 def _update_cache(cache, positions, **new):

@@ -230,6 +230,12 @@ def collect_moe_scalars(infos):
     return {"aux_loss": aux, "z_loss": z, "dropped": dropped}
 
 
+def collect_workloads(infos):
+    """Per-MoE-layer workload vectors -> (n_moe_layers, E) in layer order
+    (prefix first, then the stacks super-block-major)."""
+    return collect_field(infos, "workload")
+
+
 def collect_field(infos, field):
     """Stack a per-MoE-layer info field -> (n_moe_layers, ...) in true layer
     order (prefix first, then the stacks super-block-major)."""

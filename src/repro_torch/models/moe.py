@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer (port of ``repro/models/moe.py`` without the
-expert-parallel and chunked paths).
+expert-parallel path).
 
 Routing runs the fused router kernel K1; the expert FFN runs kernel K2 on
 one of two paths, chosen statically from shapes as in the reference
@@ -27,6 +27,12 @@ dequantized from the store's int8 twins.
 Shared experts (DeepSeek-V2-Lite's ``n_shared``) are one dense FFN that
 every token runs, added on every path as in the reference; they stay on
 the device in an offloaded serve, unseen by the store and the policy.
+
+Inputs of more than ``MOE_CHUNK_TOKENS`` tokens run chunk by chunk, as
+the reference's scan does: the tokens are padded to whole chunks, the pad
+is masked out by ``valid`` (it takes no capacity slot, counts toward no
+workload and fetches no expert), and each chunk routes, dispatches and, on
+the slot path, streams its own waves.
 
 The layer returns the same routing observables (``info``) as the
 reference: workloads, top-k choices, gates, router probabilities, gate
@@ -65,8 +71,8 @@ def is_expert_leaf(path, cfg: ModelConfig) -> bool:
     return pattern[path[1]][1] == "moe"
 
 
-# inputs above this many tokens are chunked by the reference
-# (``moe.py:547``); the port does not chunk yet
+# inputs above this many tokens run in chunks of it (``apply_moe``); read
+# at call time, so a test can make it small
 MOE_CHUNK_TOKENS = 16384
 SPARSE_CMIN = 4
 SPARSE_OVERHEAD = 4
@@ -264,19 +270,27 @@ def _bincount(keys, n: int):
                                torch.ones_like(keys, dtype=torch.int32))
 
 
-def _workload_counts(flat_e, E):
-    """Per-expert token counts over the activated (token, k) slots."""
-    return _bincount(flat_e, E)
+def _workload_counts(flat_e, E, valid_rep=None):
+    """Per-expert token counts over the activated (token, k) slots; with a
+    validity mask the invalid slots go to a virtual expert E, sliced off."""
+    if valid_rep is None:
+        return _bincount(flat_e, E)
+    return _bincount(torch.where(valid_rep, flat_e, E), E + 1)[:E]
 
 
-def local_dispatch(xf, idx, E, K, C):
+def local_dispatch(xf, idx, E, K, C, valid_rep=None):
     """Sort/gather capacity-bucket dispatch (reference ``moe.py:450``):
     returns the (E, C, d) buckets (rows past the packed count zero-filled),
     the per-expert demand, and the combine contract (sorted-slot expert
-    keys ``se``, in-expert ranks ``rank``, inverse permutation ``inv``)."""
+    keys ``se``, E for invalid slots, in-expert ranks ``rank``, inverse
+    permutation ``inv``).  Invalid (token, k) slots (``valid_rep`` False)
+    sort into a virtual expert E, so they take no capacity slot and count
+    toward no workload."""
     T = xf.shape[0]
     dev = xf.device
     key = idx.reshape(-1).long()                              # (T*K,)
+    if valid_rep is not None:
+        key = torch.where(valid_rep, key, E)
     flat_t = torch.arange(T, device=dev).repeat_interleave(K)
     se, order = torch.sort(key, stable=True)
     st = flat_t[order]
@@ -294,49 +308,115 @@ def local_dispatch(xf, idx, E, K, C):
     return xe, counts.to(torch.int32), se, rank, inv
 
 
+def _apply_moe_chunked(params, x, cfg: ModelConfig, chunk: int, *,
+                       capacity, valid, **kw):
+    """``apply_moe`` over chunks of ``chunk`` tokens (the reference's scan
+    at ``moe.py:547-592``, as a loop): the tokens are padded to whole
+    chunks and the pad masked invalid; each chunk gets ``ceil(capacity /
+    n_chunks)`` slots per expert.  Workloads and drops add up; the aux and
+    z losses, per-chunk means over valid tokens, are weighted by each
+    chunk's share of the valid tokens."""
+    B, S, d = x.shape
+    T = B * S
+    n_chunks = -(-T // chunk)
+    cap_c = -(-capacity // n_chunks) if capacity is not None else None
+    xf = x.reshape(T, d)
+    vmask = torch.arange(n_chunks * chunk, device=x.device) < T
+    if valid is not None:
+        vmask[:T] = valid
+    ys, infos = [], []
+    for c in range(n_chunks):
+        lo, hi = c * chunk, min((c + 1) * chunk, T)
+        xc = xf[lo:hi]
+        if hi - lo < chunk:                    # ragged tail: pad + mask
+            xc = torch.cat([xc, xc.new_zeros((chunk - (hi - lo), d))])
+        y, info = apply_moe(params, xc[None], cfg, capacity=cap_c,
+                            valid=vmask[c * chunk:(c + 1) * chunk], **kw)
+        ys.append(y[0, :hi - lo])
+        infos.append(info)
+    n_valid = vmask.reshape(n_chunks, chunk).sum(1).float()
+    w_chunk = n_valid / n_valid.sum().clamp(min=1)
+    cat = lambda k: torch.cat([i[k] for i in infos])[:T]
+    stack = lambda k: torch.stack([i[k] for i in infos])
+    info = {
+        "workload": stack("workload").sum(0).to(torch.int32),
+        "topk_idx": cat("topk_idx"),
+        "gates": cat("gates"),
+        "probs": cat("probs"),
+        "gate_in": xf,                 # the chunks' inputs, pad trimmed
+        "aux_loss": (stack("aux_loss") * w_chunk).sum(),
+        "z_loss": (stack("z_loss") * w_chunk).sum(),
+        "dropped": stack("dropped").sum().to(torch.int32),
+    }
+    return torch.cat(ys).reshape(B, S, d), info
+
+
 def apply_moe(params, x, cfg: ModelConfig, *,
-              capacity: Optional[int] = None,
+              capacity: Optional[int] = None, valid=None,
               force_path: Optional[str] = None,
               slots=None, slot_fetch=None, slot_live=None,
               slot_phase: str = "decode"):
     """Returns (y, info) with DALI's routing observables (reference
-    ``apply_moe`` without EP, chunking or a validity mask).
+    ``apply_moe`` without EP).
+
+    ``valid`` (T,) bool marks real tokens (None: all real): invalid tokens
+    take no capacity slot, count toward no workload or aux loss, fetch no
+    expert on the slot path, and their output rows are zero (plus the
+    shared experts' output, which the chunked caller slices off).  Inputs
+    of more than ``MOE_CHUNK_TOKENS`` tokens run chunk by chunk
+    (``_apply_moe_chunked``).
 
     ``slots`` (one layer's ``ExpertStore.build_view`` entry) + ``slot_fetch``
     (the store) select the physical-offload slot-pool path; ``slot_live``
     (T,) bool keeps dead batch slots from counting as misses.
     ``slot_phase`` "decode" always takes the grouped path (a step's
-    activated rows are few); "prefill" keeps ``use_sparse_path``'s rule, so
-    the offloaded sweep has the full-resident path's shapes."""
+    activated rows are few; more than a chunk of them raises); "prefill"
+    keeps ``use_sparse_path``'s rule, so the offloaded sweep has the
+    full-resident path's shapes, and chunks as full-resident execution
+    does."""
     if force_path not in (None, "dense", "sparse"):
         raise ValueError(f"force_path must be None|'dense'|'sparse', "
                          f"got {force_path!r}")
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    if T > MOE_CHUNK_TOKENS:
-        raise NotImplementedError(
-            f"{T} tokens exceed MOE_CHUNK_TOKENS={MOE_CHUNK_TOKENS}; chunked "
-            "execution is ported later (ROADMAP.md queue 1, "
-            "\"MOE_CHUNK_TOKENS chunking\")")
+    chunk = MOE_CHUNK_TOKENS
+    if slots is not None and T > chunk and slot_phase != "prefill":
+        raise ValueError("the slot-pool path serves decode-sized steps; "
+                         f"{T} tokens exceed MOE_CHUNK_TOKENS "
+                         "(prefill-sized inputs stream with "
+                         "slot_phase='prefill')")
+    if T > chunk:
+        return _apply_moe_chunked(
+            params, x, cfg, chunk, capacity=capacity, valid=valid,
+            force_path=force_path, slots=slots, slot_fetch=slot_fetch,
+            slot_phase=slot_phase)
     E, K = m.n_routed, m.top_k
     xf = x.reshape(T, d)
 
     gates, idx, probs, logits = route(params, xf, m)
+    vrep = None if valid is None else valid.repeat_interleave(K)
     sparse = (force_path == "sparse" if force_path is not None
               else ((slots is not None and slot_phase == "decode")
                     or use_sparse_path(m, T, capacity)))
     if sparse:
         if slots is not None:
+            # a prefill chunk's pad tokens take the dead-slot seam: they
+            # never count as misses (their output rows are zeroed below)
+            live = slot_live if slot_live is not None else \
+                (valid if slot_phase == "prefill" else None)
             y = slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg,
-                                live=slot_live)
+                                live=live)
         else:
             y = grouped_expert_ffn(params, xf, idx, gates, cfg)
-        counts = _workload_counts(idx.reshape(-1), E)
+        counts = _workload_counts(idx.reshape(-1), E, vrep)
+        if valid is not None:
+            y = torch.where(valid[:, None], y, 0)
         dropped = torch.zeros((), dtype=torch.int32, device=x.device)
     else:
         C = capacity if capacity is not None else expert_capacity(m, T)
-        xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C)
+        xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C,
+                                                   valid_rep=vrep)
         host_need = None
         if slots is not None:
             ye, host_need = slot_expert_sweep(slots, slot_fetch, xe, counts,
@@ -348,9 +428,12 @@ def apply_moe(params, x, cfg: ModelConfig, *,
         contrib = torch.where(keep_s[:, None], contrib, 0)[inv]
         if host_need is not None and host_need.any():
             # the CPU tier at (token, k)-row granularity: host rows replace
-            # their (zero) device contributions under the same drops
-            e_np = slot_fetch.read_misses(idx.reshape(-1), prefill=True)
-            host_hit = ~host_need[e_np]
+            # their (zero) device contributions under the same drops;
+            # invalid rows read as the virtual expert E, never needed
+            key = idx.reshape(-1) if vrep is None else \
+                torch.where(vrep, idx.reshape(-1), E)
+            e_np = slot_fetch.read_misses(key, prefill=True)
+            host_hit = ~np.append(host_need, False)[e_np]
             ys_host = slot_fetch.prefill_host(slots["lid"], xf.cpu(), e_np,
                                               host_hit).to(x.device)
             host_miss = ~torch.from_numpy(host_hit).to(x.device)
@@ -363,9 +446,17 @@ def apply_moe(params, x, cfg: ModelConfig, *,
     if m.n_shared:
         y = y + apply_mlp(params["shared"], xf, cfg)
 
-    frac_tokens = counts.float() / (T * K)
-    mean_prob = probs.mean(0)
-    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if valid is None:
+        frac_tokens = counts.float() / (T * K)
+        mean_prob = probs.mean(0)
+        z_loss = lse2.mean()
+    else:
+        n_valid = valid.sum().clamp(min=1).float()
+        frac_tokens = counts.float() / (n_valid * K)
+        vf = valid.float()
+        mean_prob = (probs * vf[:, None]).sum(0) / n_valid
+        z_loss = (lse2 * vf).sum() / n_valid
     aux_loss = E * (frac_tokens * mean_prob).sum()
     info = {
         "workload": counts,                        # (E,) tokens per expert

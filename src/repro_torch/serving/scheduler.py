@@ -43,8 +43,18 @@ import torch
 from repro_torch.core.engine import TelemetryAggregator
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_caches
-from repro_torch.serving.spec import ResolvedServe, ServeSpec
+from repro_torch.serving.spec import (ResolvedServe, ServeSpec, build_store,
+                                     warn_legacy)
 from repro_torch.serving.steps import make_admit_step, retire_slot
+
+
+def make_store(offload: str, params, cfg, policy, fallback: str = "fetch",
+               faults=None, cost_model=None, device="cuda"):
+    """Legacy surface over ``spec.build_store`` (deprecated: construct
+    through ``ServeSpec.resolve()``)."""
+    warn_legacy("make_store")
+    return build_store(offload, params, cfg, policy, fallback=fallback,
+                       faults=faults, cost_model=cost_model, device=device)
 
 
 class PromptTooLongError(ValueError):
@@ -178,6 +188,7 @@ class _Server:
                 raise TypeError(f"{type(self).__name__} needs cfg or "
                                 "resolved= (ServeSpec.resolve(params))")
             from repro_torch.serving.spec import OffloadSpec
+            warn_legacy(f"{type(self).__name__}(params, cfg, ...)")
             resolved = ServeSpec(
                 cfg=cfg, server=self.preset, policy=policy,
                 dali_cfg=dali_cfg, batch_size=batch_size, max_len=max_len,

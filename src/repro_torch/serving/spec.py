@@ -12,10 +12,19 @@ the serve state and the server.  ``OffloadSpec.faults`` arms the store's
 fault injection, link watchdog and ladder; ``topology`` prices links
 between devices and comes with expert parallelism, so it raises
 ``NotImplementedError``.
+
+The legacy kwarg surfaces (``scheduler.make_store``, ``make_decode_step``
+and ``init_serve_state`` with ``offload=``, the servers built from
+``cfg=``) still work and warn once per process (``warn_legacy``); the
+spec's own factories build on them under ``_internal()``, which keeps
+them silent.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import warnings
 from typing import Any, Optional
 
 from repro_torch.device import resolve_device
@@ -40,6 +49,34 @@ def require_offload_policy(policy, cfg):
     architecture."""
     if not (getattr(policy, "schedules", False) and cfg.moe is not None):
         raise ValueError(OFFLOAD_POLICY_ERROR)
+
+
+_STATE = threading.local()
+_WARNED: set = set()
+
+
+@contextlib.contextmanager
+def _internal():
+    """Mark legacy-surface calls made by the spec machinery itself, so
+    that only direct legacy construction warns."""
+    prev = getattr(_STATE, "in_resolve", False)
+    _STATE.in_resolve = True
+    try:
+        yield
+    finally:
+        _STATE.in_resolve = prev
+
+
+def warn_legacy(api: str):
+    """Once-per-process DeprecationWarning for a legacy construction entry
+    point, suppressed under ``_internal()``."""
+    if getattr(_STATE, "in_resolve", False) or api in _WARNED:
+        return
+    _WARNED.add(api)
+    warnings.warn(
+        f"{api} with legacy kwargs is deprecated; construct through "
+        "ServeSpec.resolve() (repro_torch/serving/spec.py)",
+        DeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,10 +206,12 @@ class ResolvedServe:
     def decode_step(self):
         from repro_torch.serving.steps import make_decode_step
         s = self.spec
-        return make_decode_step(s.cfg, policy=self.policy,
-                                moe_capacity=s.moe_capacity,
-                                sample=s.sample, temperature=s.temperature,
-                                offload=self.store)
+        with _internal():
+            return make_decode_step(s.cfg, policy=self.policy,
+                                    moe_capacity=s.moe_capacity,
+                                    sample=s.sample,
+                                    temperature=s.temperature,
+                                    offload=self.store)
 
     def resilient_decode(self):
         """The decode the servers call: variants switched by the store's
@@ -202,10 +241,12 @@ class ResolvedServe:
                    max_len: Optional[int] = None):
         from repro_torch.serving.steps import init_serve_state
         s = self.spec
-        return init_serve_state(s.cfg, batch or s.batch_size,
-                                max_len or s.max_len, policy=self.policy,
-                                per_slot=per_slot, seed=seed,
-                                device=self.device, offload=self.store)
+        with _internal():
+            return init_serve_state(s.cfg, batch or s.batch_size,
+                                    max_len or s.max_len,
+                                    policy=self.policy, per_slot=per_slot,
+                                    seed=seed, device=self.device,
+                                    offload=self.store)
 
     def server(self, res_vecs=None):
         """The server the spec names, built from this resolution."""

@@ -230,10 +230,13 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
     ``fallback`` overrides the store's miss tier for this decode variant
     (see ``_FallbackView``): the ladder's "little" rung reads the store's
     int8 twins."""
-    from repro_torch.serving.spec import require_offload_policy
+    from repro_torch.serving.spec import require_offload_policy, warn_legacy
     policy = resolve_policy(policy, cfg, dali_cfg)
     use_policy = policy.schedules and cfg.moe is not None
     if offload is not None:
+        # legacy construction; ResolvedServe.decode_step() builds this
+        # variant without warning
+        warn_legacy("make_decode_step(offload=...)")
         require_offload_policy(policy, cfg)
     slot_fetch = _offload_consts(offload, fallback)
 
@@ -318,8 +321,11 @@ class ResilientDecode:
         else:
             pol = self.offload.degraded_policy(self.policy)
             fb = "little" if rung == "little" else None
-        return make_decode_step(self.cfg, policy=pol, offload=self.offload,
-                                fallback=fb, **self._kw)
+        from repro_torch.serving.spec import _internal
+        with _internal():      # variant builds are not legacy call sites
+            return make_decode_step(self.cfg, policy=pol,
+                                    offload=self.offload, fallback=fb,
+                                    **self._kw)
 
     def react(self):
         """Align the active variant with the store's ladder state.  Returns
@@ -368,7 +374,11 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
     if policy.schedules and cfg.moe is not None:
         state["dali"] = policy.init(seed=seed, device=dev)
     if offload is not None:
-        from repro_torch.serving.spec import require_offload_policy
+        from repro_torch.serving.spec import (require_offload_policy,
+                                              warn_legacy)
+        # legacy construction; ResolvedServe.init_state() reaches this
+        # without warning
+        warn_legacy("init_serve_state(offload=...)")
         require_offload_policy(policy, cfg)
         state["offload"] = offload.init_device_state(
             state["dali"]["resident"].cpu().numpy())

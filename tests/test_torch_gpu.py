@@ -40,6 +40,15 @@ def _rel_err(y, r):
     return float((y.float() - r).abs().max()) / (float(r.abs().max()) + 1e-6)
 
 
+def _row_rel_err(y, r):
+    """The largest, over rows (every index but the last), of a row's max
+    |y - r| over that row's max |r|: each query row and head of an
+    attention output held to its own scale."""
+    y, r = y.float().flatten(0, -2), r.float().flatten(0, -2)
+    return float(((y - r).abs().amax(-1)
+                  / (r.abs().amax(-1) + 1e-6)).max())
+
+
 def _check_gating(lg, k, rt, renorm):
     """One launch of the variant ``plan`` picks, counted under its key; idx
     exact, gates atol 1e-5, probs atol 1e-6 / rtol 1e-5 against the plain
@@ -782,3 +791,54 @@ def test_little_rung_on_the_card_launches_k4_and_stays_close(cuda):
     assert store.stats()["fallback_fetches"] == 0
     err = float((lg.float() - lg_ref.float()).norm() / lg_ref.float().norm())
     assert 0.0 < err < 0.2
+
+
+# --------------------------------------------------------------------------
+# long prompts: K3 past the blockwise threshold, the chunked MoE layer
+# --------------------------------------------------------------------------
+
+def test_flash_attention_long_prompt_matches_blockwise_plain(cuda):
+    """K3 at S = 8192 against the plain version, which attends blockwise
+    from 4096 keys on (the dense one would hold 8.6 GB of scores).  Row by
+    row: a late row averages thousands of values and is far smaller than
+    row 0, so one scale for the whole output would not see it."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    S, Hq, Hkv, D = 8192, 32, 8, 128
+    q = torch.randn((1, S, Hq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((1, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    before = kernels.LAUNCHES["flash_attention"]
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert _row_rel_err(o, flash_attention_plain(q, k, v, causal=True)) \
+        < BF16_TOL
+
+
+def test_chunked_apply_moe_on_the_card_matches_plain(cuda, monkeypatch):
+    """A 96-token MoE forward in chunks of 40 (the last one padded and
+    masked): K1 and K2 ragged launch once per chunk, and the output and
+    every observable agree with the same forward through the plain
+    versions on the card (indices and workloads exactly)."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.expert_ffn import ops as ffn_ops
+    from repro_torch.kernels.gating import ops as gating_ops
+    cfg, params, _ = _small_bf16_model()
+    mlp = {k: v[0] for k, v in params["scan"][0]["mlp"].items()}
+    monkeypatch.setattr(moe, "MOE_CHUNK_TOKENS", 40)
+    x = torch.tensor(np.random.default_rng(2).standard_normal(
+        (2, 48, cfg.d_model)), dtype=torch.bfloat16, device=cuda)
+    kernels.reset_launch_counts()
+    y, info = moe.apply_moe(mlp, x, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gating"] == 3
+    assert kernels.LAUNCHES["expert_ffn_ragged"] == 3
+    monkeypatch.setattr(gating_ops, "_launch", gating_ops.gating_plain)
+    monkeypatch.setattr(ffn_ops, "_launch", lambda *a: ffn_ops
+                        .expert_ffn_plain(*a))
+    yp, ip = moe.apply_moe(mlp, x, cfg)
+    assert _rel_err(y, yp) < BF16_TOL
+    for key in ("topk_idx", "workload", "dropped"):
+        assert torch.equal(info[key], ip[key]), key
+    assert info["topk_idx"].shape == (96, cfg.moe.top_k)
