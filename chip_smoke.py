@@ -29,7 +29,9 @@ outside a checkout.  Phases (any failure exits non-zero):
    pool): at 8 layers the batch-2 requests of phase 5 in the blocking,
    overlap and pipelined modes with the fetch tier must give phase 5's
    tokens, and the host tier's first-step logits must be within 3e-2; then
-   Mixtral-8x7B as deep as the host can pin (all 32 layers where it can),
+   Mixtral-8x7B as deep as the host can pin, up to ``OFFLOAD_LAYERS`` = 16
+   of its 32 layers (phase 14's Jamba pins 77.3 GB; the cut keeps the
+   script inside its time limit),
    served pipelined at two cache ratios, must give identical tokens with
    peak device memory below the model's weight bytes.  Its launch counts
    are read on their own, like phase 5's;
@@ -121,7 +123,34 @@ outside a checkout.  Phases (any failure exits non-zero):
    own check that the ce falls), ``quickstart`` (greedy makespan >= the
    optimal one, the DALI step's hits + misses > 0), ``offload_ablation``
    (every row, the four ``--offload`` modes' 20 timed steps) and
-   ``serve_moe`` (16 requests) at the reference's defaults.
+   ``serve_moe`` (16 requests) at the reference's defaults;
+14. archs  — the nine architectures the port added last, bfloat16, random
+   weights from seed 0: (a) each smoke model (its whole period, cross
+   gates opened to 0.5) on the card against the CPU: a 20-token prefill
+   (with a cross source for the VLM and audio archs) and two decode steps,
+   the first token's logits within 3e-2 with the same token; one training
+   step's gradients within 3e-2 per leaf for OLMo, Mamba-2, Jamba,
+   Gemma-2, Llama-3.2-Vision and Seamless (cross sources for the last
+   two); (b) Jamba-1.5-Large at published widths, one pattern period (8
+   layers: 7 Mamba + 1 attention, 4 MoE; 5 where the host cannot pin 8
+   layers' 77.3 GB of experts), the routed stacks drawn into the pinned
+   host store, residual vectors calibrated through the slot pool, then 4
+   ``MarkovCorpus`` requests x 8 tokens at batch 2 through ``BatchServer``
+   with ``dali``, pipelined, fetch tier, at cache ratio 0.25 and a second
+   ratio (0.5 where its pool and staging fit on the card, else 0.125):
+   identical tokens, K1, K4 and K3 launched (counts zeroed just before the
+   serves, read just after); (c) Seamless, Llama-3-405B, Llama-4 Maverick,
+   Qwen3-32B, Llama-3.2-Vision, Gemma-2, OLMo and Mamba-2 at published
+   widths, at full depth where the weights fit beside what the process
+   holds, else the depth that fits (printed), full-resident: 2 requests x
+   8 tokens at batch 2 (the wave server for Mamba-2), the kernels each
+   arch runs launched; Gemma-2 decodes after a 5000-token prompt (past
+   its 4096 window, admitted at exact length) with every kept position at
+   slot pos % 4096, within 3e-2 of the recompute at 8 layers and, at all
+   42, within 1.5x of a 4000-token prompt's decode-vs-recompute gap
+   (bfloat16 alone puts the two ~4.5e-2 apart there); Llama-3.2-Vision (1601 vision tokens) and Seamless (1024
+   frames through its encoder) decode after a cross source within 3e-2
+   of the recompute, K3 non-causal launched.
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -132,7 +161,15 @@ bucket and grouped over a batch-8 decode at d = 2048, f = 768 / 1408, and
 K3 at Qwen3's GQA (D = 128, G = 8) and DeepSeek-V2-Lite's MLA (D = 192,
 the 128-wide values zero-padded), S = 128..512, and phase 12's: K2
 ragged over one 16384-token chunk (C = 5120) and K3 at B = 1, S = 20018
-against its blockwise plain version.  Phase 6's full-depth
+against its blockwise plain version, and phase 14's: K1 at Jamba's router
+(E = 16 top-2) and Llama-4's (E = 128 top-1 sigmoid), K2 ragged over
+Jamba's and Llama-4's expert stacks (3.2e9 and 5.4e9 elements a stack,
+past 2^31), K4 over Jamba's pool sweep and a decode reading the stack's
+far end, and K3 at a VLM cross layer (Sq = 64, Sk = 1601, non-causal),
+Seamless's encoder (S = 1024, D = 64), Gemma-2's local layer at S = 5000
+(window 4096, softcap 50, D = 256: no single library call), Llama-3-405B
+(G = 16), Llama-4 (G = 5, K/V heads repeated) and Jamba's attention
+layer.  Phase 6's full-depth
 serve calibrates its residual vectors through the slot pool.  Each phase
 prints its seconds.  The second-to-last line is the
 ``kernels`` JSON object, the last line ``{"ok": true, "device": {...}}``.
@@ -312,7 +349,9 @@ def kernel_phase(torch, cfg, wave_S):
         by CUDA events and the kernel and library call by device time."""
         ms, dms = cuda_ms(torch, fn), device_ms(torch, fn)
         plain_ms = cuda_ms(torch, plain_fn, **(plain_kw or {}))
-        lib_ms, lib_dms = cuda_ms(torch, lib_fn), device_ms(torch, lib_fn)
+        lib_ms = lib_dms = None          # no single PyTorch call computes it
+        if lib_fn is not None:
+            lib_ms, lib_dms = cuda_ms(torch, lib_fn), device_ms(torch, lib_fn)
         rows.append({"name": name, "shape": shape, "max_abs_err": err,
                      "ok": ok, "ms": ms, "device_ms": dms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -324,8 +363,10 @@ def kernel_phase(torch, cfg, wave_S):
               + ("" if row_err is None else f"row_rel_err={row_err:.3e} ")
               + f"{'pass' if ok else 'FAIL'} kernel_ms={ms:.4f} "
               f"device_ms={dms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} library_device_ms={lib_dms:.4f} "
-              f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
+              + (f"library_ms={lib_ms:.4f} library_device_ms={lib_dms:.4f} "
+                 if lib_fn is not None else "library_ms=None (no single "
+                 "PyTorch call) ")
+              + f"bound_ms={b[0]:.4f} ({b[1]})", flush=True)
 
     # -- K1: router over T rows of E logits, beside the floor of a kernel
     # that does nothing with the same launch shape (csrc/noop.cu): the
@@ -353,6 +394,16 @@ def kernel_phase(torch, cfg, wave_S):
                       routers[tag].top_k, routers[tag].router_type,
                       routers[tag].renormalize, "", g)
                      for tag in ("deepseek", "qwen3")]
+    # phase 14's routers, from a stream of their own: Jamba's (E = 16 top-2,
+    # the row variant) at its wave decode (batch 2) and a 256-token prefill,
+    # Llama-4's (E = 128 top-1 sigmoid, the warp variant) likewise
+    gen14 = torch.Generator(device=dev)
+    gen14.manual_seed(14)
+    for tag, arch in (("jamba", "jamba-1.5-large-398b"),
+                      ("llama4", "llama4-maverick-400b-a17b")):
+        am = get_config(arch).moe
+        k1_cases += [(tag + " ", T, am.n_routed, am.top_k, am.router_type,
+                      am.renormalize, "", gen14) for T in (2, 256)]
     for tag, T, e, k, rt, rn, note, g in k1_cases:
         variant, width = plan(e, k)
         floor = (device_ms(torch, lambda: launch_floor(T, e, k)),
@@ -525,6 +576,52 @@ def kernel_phase(torch, cfg, wave_S):
               "distinct set (the bound counts the distinct set)", flush=True)
         del nws, xe
 
+    # -- K2 at phase 14's expert widths, one model's stack at a time:
+    # Jamba's (E = 16, d = 8192, f = 24576: 3.2e9 elements a stack, past
+    # 2^31) ragged over a 256-token bucket, grouped over its pipelined
+    # pool's prefill sweep (the first 7 experts pooled, C = the bucket's)
+    # and over a batch-2 decode reading the whole stack; Llama-4's (E = 128,
+    # d = 5120, f = 8192) ragged over a 256-token bucket and grouped over a
+    # batch-2 decode
+    for tag, arch in (("jamba", "jamba-1.5-large-398b"),
+                      ("llama4", "llama4-maverick-400b-a17b")):
+        acfg = get_config(arch)
+        am = acfg.moe
+        aE, aK, ad, af = am.n_routed, am.top_k, acfg.d_model, am.d_expert
+        aws = tuple((torch.randn(shape, generator=gen14, device=dev)
+                     / math.sqrt(shape[1])).bfloat16()
+                    for shape in ((aE, ad, af), (aE, ad, af), (aE, af, ad)))
+        C = expert_capacity(am, 256)
+        perm = lambda: torch.randperm(aE, generator=gen14, device=dev)[:aK]
+        idx = torch.stack([perm() for _ in range(256)])
+        counts = torch.bincount(idx.reshape(-1), minlength=aE) \
+            .to(torch.int32)
+        xe = torch.randn((aE, C, ad), generator=gen14, device=dev).bfloat16()
+        ffn_case("expert_ffn_ragged", f"{tag} T=256 E={aE} C={C} d={ad} "
+                 f"f={af} ({aws[0].numel():.2e} elements a stack)", xe,
+                 counts, None, weights=aws)
+        if tag == "jamba":
+            pooled = 7
+            pc = counts.clone()
+            pc[pooled:] = 0
+            ffn_case("expert_ffn_grouped", f"{tag} pool sweep G={aE} C={C} "
+                     f"S={pooled} d={ad} f={af}", xe, pc,
+                     torch.tensor(list(range(pooled)) + [0] * (aE - pooled),
+                                  dtype=torch.int32, device=dev),
+                     weights=tuple(w[:pooled] for w in aws))
+        del xe
+        eids = torch.stack([perm() for _ in range(2)]).reshape(-1) \
+            .to(torch.int32)
+        eids[0] = aE - 1                 # the stack's far end
+        G = eids.numel()
+        xe = torch.randn((G, 1, ad), generator=gen14, device=dev).bfloat16()
+        ffn_case("expert_ffn_grouped", f"{tag} decode G={G} C=1 d={ad} "
+                 f"f={af} ids={eids.tolist()}", xe,
+                 torch.ones((G,), dtype=torch.int32, device=dev), eids,
+                 weights=aws)
+        del aws, xe
+        torch.cuda.empty_cache()
+
     # -- K3: causal GQA prefill attention ---------------------------------
     a = cfg.attn
     Hq, Hkv, D = a.n_heads, a.n_kv_heads, a.head_dim
@@ -633,6 +730,60 @@ def kernel_phase(torch, cfg, wave_S):
                       f"the values {vd} wide {unpadded[0]:.4f} ms "
                       f"({unpadded[1]}) against {b[0]:.4f} ms padded",
                       flush=True)
+    torch.cuda.empty_cache()
+    # -- K3 at phase 14's shapes: a VLM cross layer (non-causal, 64 queries
+    # over the 1601 vision tokens), Seamless's encoder (non-causal, 1024
+    # frames, D = 64), Gemma-2's local layer at a 5000-token prompt (window
+    # 4096, softcap 50, D = 256: SDPA has no softcap, so no single library
+    # call), Llama-3-405B's G = 16, Llama-4's G = 5 (K/V heads repeated
+    # to one per query head: 5 does not divide the kernel's 64-row tile)
+    # and Jamba's attention layer (a batch-2 wave)
+    for tag, arch, B, Sq, Sk, causal, window, cap in (
+            ("vision", "llama-3.2-vision-11b", 1, 64, 1601, False, 0, 0.0),
+            ("seamless", "seamless-m4t-large-v2", 1, 1024, 1024, False, 0,
+             0.0),
+            ("gemma2", "gemma2-9b", 1, 5000, 5000, True, 4096, 50.0),
+            ("llama3", "llama3-405b", 1, 256, 256, True, 0, 0.0),
+            ("llama4", "llama4-maverick-400b-a17b", 1, 256, 256, True, 0,
+             0.0),
+            ("jamba", "jamba-1.5-large-398b", 2, 128, 128, True, 0, 0.0)):
+        na = get_config(arch).attn
+        nHq, nD = na.n_heads, na.head_dim
+        # a cross layer's keys and values have every query head
+        nHkv = nHq if tag == "vision" else na.n_kv_heads
+        q = torch.randn((B, Sq, nHq, nD), generator=gen14,
+                        device=dev).bfloat16()
+        k = torch.randn((B, Sk, nHkv, nD), generator=gen14,
+                        device=dev).bfloat16()
+        v = torch.randn((B, Sk, nHkv, nD), generator=gen14,
+                        device=dev).bfloat16()
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o = flash_attention(q, k, v, **kw)
+        r = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((o.float() - r.float()).abs().max())
+        rerr = row_rel_err(o, r)
+        ok = rerr < BF16_TOL
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if causal:
+            # query i (at key position Sk - Sq + i) sees min(i + 1, window)
+            pairs = sum(min(i + 1, window or Sk) for i in range(Sq))
+        else:
+            pairs = Sq * Sk
+        lib = None if cap else (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        record("flash_attention",
+               f"{tag} B={B} Sq={Sq} Sk={Sk} Hq={nHq} Hkv={nHkv} D={nD}"
+               + (" causal" if causal else " non-causal")
+               + (f" window={window}" if window else "")
+               + (f" softcap={cap:g}" if cap else ""), err, ok,
+               lambda: flash_attention(q, k, v, **kw),
+               lambda: flash_attention_plain(q, k, v, **kw), lib,
+               bound(B * (2 * Sq * nHq + 2 * Sk * nHkv) * nD * 2,
+                     4.0 * B * nHq * nD * pairs, BF16_FLOP_S),
+               plain_kw=dict(budget_s=0.5, max_iters=5), row_err=rerr)
+        del q, k, v, qt, kt, vt, o, r
     torch.cuda.empty_cache()
 
     # -- host cost per wrapper call at decode forms; narrow widths so that
@@ -924,6 +1075,7 @@ def print_groups(groups, busy):
 
 MODES = ("blocking", "overlap", "pipelined")
 HOST_RESERVE = 8 * 2**30     # host bytes left unpinned at full depth
+OFFLOAD_LAYERS = 16          # (b)'s deepest Mixtral (32 until PR 20)
 
 
 def mem_available():
@@ -1021,7 +1173,8 @@ def free(torch):
 def offload_phase(torch, kernels, name, ctx):
     """(a) 8 layers, the serve phase's weights and batch-2 requests: every
     mode with the fetch tier gives the full-resident tokens; (b) the
-    deepest depth the host can pin (up to 32 layers): pipelined + fetch at
+    deepest depth the host can pin (up to ``OFFLOAD_LAYERS``): pipelined
+    + fetch at
     two cache ratios gives the same tokens, with peak device memory below
     the model's weight bytes; (c) 8 layers again: the host tier's
     first-step logits are close to full-resident's."""
@@ -1102,7 +1255,7 @@ def offload_phase(torch, kernels, name, ctx):
     full = get_config("mixtral-8x7b")
     m = full.moe
     layer_bytes = m.n_routed * 3 * full.d_model * m.d_expert * 2
-    depth = min(full.n_layers, int((avail - HOST_RESERVE) // layer_bytes))
+    depth = min(OFFLOAD_LAYERS, int((avail - HOST_RESERVE) // layer_bytes))
     print(f"offload: MemAvailable {avail / 2**30:.1f} GiB, "
           f"{layer_bytes / 1e9:.2f} GB of experts per layer -> depth "
           f"{depth} of {full.n_layers}", flush=True)
@@ -1563,10 +1716,19 @@ def backward_lines(torch, params, cfg, name):
     free(torch)
 
 
-def train_parity(torch, kernels, arch="mixtral-8x7b"):
+def train_parity(torch, kernels, arch="mixtral-8x7b", n_layers=2,
+                 bf16_floor=False):
     """One step's gradients on the card (kernels, autograd Functions)
     against the same step on the CPU (plain versions), the smoke model of
-    ``arch`` at two layers, bfloat16.  A bfloat16 near-tie can route a
+    ``arch`` at ``n_layers`` layers (None: its whole period), bfloat16; a
+    VLM or audio arch trains against a seeded cross source, its cross gates
+    opened (``open_gates``).  Every leaf within 3e-2 relative to max |ref|
+    of the CPU's; with ``bf16_floor`` a leaf whose gradient bfloat16 itself
+    cannot resolve to 3e-2 may instead lie no farther from the float32
+    step's gradient (CPU, same routing) than 3e-2 plus twice the CPU's own
+    bfloat16 distance from it (a gate's or a conv filter's gradient sums
+    many cancelling terms: the CPU's bfloat16 step lies up to 0.36 from
+    the float32 one there, PERF.md §6, PR 20).  A bfloat16 near-tie can route a
     token to another expert on one device (phase 4), and that token's
     expert then differs: the CPU step takes the card's routing (its
     ``idx``, with gates and probs computed on the CPU from its own
@@ -1576,19 +1738,24 @@ def train_parity(torch, kernels, arch="mixtral-8x7b"):
     from repro_torch.configs import get_config, make_smoke
     from repro_torch.data.pipeline import MarkovCorpus, batches
     from repro_torch.kernels.gating.ops import _gates, _probs, gating_plain
+    from repro_torch.models.config import layer_pattern
     from repro_torch.models.model import init_model
     from repro_torch.training.train_step import make_loss_fn, value_and_grad
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
-    cfg = make_smoke(get_config(arch)).replace(
-        n_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    cfg = make_smoke(get_config(arch))
+    cfg = cfg.replace(n_layers=n_layers or cfg.n_layers, dtype="bfloat16",
+                      param_dtype="bfloat16")
     tag = "" if arch == "mixtral-8x7b" else f" {cfg.name}"
-    cpu = init_model(cfg, seed=1, device="cpu")
+    cpu = open_gates(torch, init_model(cfg, seed=1, device="cpu"))
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     loss_fn = make_loss_fn(cfg)
     b = next(iter(batches(MarkovCorpus(vocab=cfg.vocab, seed=2), 2, 64, 1,
                           seed=2)))
     bc = {k: torch.as_tensor(v) for k, v in b.items()}
+    src = cross_source(torch, cfg, 2, seed=2)
+    if src is not None:
+        bc["cross_src"] = src
     bg = {k: t.to("cuda") for k, t in bc.items()}
     real, card_idx, moved = moe.gating, [], []
 
@@ -1608,21 +1775,51 @@ def train_parity(torch, kernels, arch="mixtral-8x7b"):
         return _gates(x, probs, idx, router_type, renormalize), idx, probs
 
     kernels.reset_launch_counts()
+    gf = None
     try:
         moe.gating = record
         (_, mg), gg = value_and_grad(loss_fn, gpu, bg)
         torch.cuda.synchronize()
         moe.gating = card_routing
         (_, mc), gc = value_and_grad(loss_fn, cpu, bc)
+        if bf16_floor:                  # the float32 step, same routing
+            counted = list(moved)
+            moved.clear()               # card_routing replays card_idx
+            cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+            (_, _), gf = value_and_grad(
+                make_loss_fn(cfg32), tree_map(lambda t: t.float(), cpu),
+                {k: (t.float() if t.is_floating_point() else t)
+                 for k, t in bc.items()})
+            moved[:] = counted
     finally:
         moe.gating = real
-    bwd = {k: kernels.LAUNCHES[k] for k in
-           ("gating_bwd", "expert_ffn_bwd", "flash_attention_bwd")}
+    pattern = layer_pattern(cfg)
+    need = (["gating_bwd", "expert_ffn_bwd"]
+            if any(m == "moe" for _, m in pattern) else []) \
+        + (["flash_attention_bwd"]
+           if any(x != "mamba" for x, _ in pattern) else [])
+    bwd = {k: kernels.LAUNCHES[k] for k in need}
     errs = [rel_err(g.cpu(), r) for g, r in zip(tree_leaves(gg),
                                                 tree_leaves(gc))]
+    leaf_ok = [e < BF16_TOL for e in errs]
+    if gf is not None:
+        paths = []
+        tree_map_with_path(lambda path, t: paths.append(
+            "/".join(map(str, path))), gg)
+        for i, (g, c, f) in enumerate(zip(tree_leaves(gg), tree_leaves(gc),
+                                          tree_leaves(gf))):
+            if leaf_ok[i]:
+                continue
+            e_cf, e_bf = rel_err(g.cpu(), f), rel_err(c, f)
+            leaf_ok[i] = e_cf <= BF16_TOL + 2 * e_bf
+            print(f"train (b){tag} leaf {paths[i]}: card against CPU "
+                  f"{errs[i]:.3e}; against the float32 step: card "
+                  f"{e_cf:.3e}, CPU bfloat16 {e_bf:.3e} (the leaf's "
+                  f"bfloat16 floor) | {'pass' if leaf_ok[i] else 'FAIL'}",
+                  flush=True)
     m_err = {k: rel_err(mg[k].cpu().reshape(1), mc[k].reshape(1))
              for k in ("ce", "aux", "router_z")}
-    ok = (max(errs) < BF16_TOL and all(e < BF16_TOL for e in m_err.values())
+    ok = (all(leaf_ok) and all(e < BF16_TOL for e in m_err.values())
           and int(mg["dropped"]) == int(mc["dropped"])
           and all(v > 0 for v in bwd.values()))
     print(f"train (b){tag}: one step's gradients, card (kernels) against "
@@ -2510,6 +2707,547 @@ def examples_phase(torch, kernels, name):
     return ok, counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the remaining architectures
+# --------------------------------------------------------------------------
+
+# (tag, arch) of the nine architectures phase 14 adds, in the registry's
+# order; the tags name their kernel rows and launch counts
+ARCH_NEW = (("seamless", "seamless-m4t-large-v2"), ("llama3", "llama3-405b"),
+            ("llama4", "llama4-maverick-400b-a17b"),
+            ("qwen3_32b", "qwen3-32b"), ("vision", "llama-3.2-vision-11b"),
+            ("gemma2", "gemma2-9b"), ("jamba", "jamba-1.5-large-398b"),
+            ("olmo", "olmo-1b"), ("mamba2", "mamba2-780m"))
+# (a)'s training steps: tests/test_archs_smoke.py's six trained archs less
+# Mixtral and DeepSeek-V2-Lite (phases 9 and 10), and the two
+# cross-attention archs
+ARCH_TRAIN = ("olmo-1b", "mamba2-780m", "jamba-1.5-large-398b", "gemma2-9b",
+              "llama-3.2-vision-11b", "seamless-m4t-large-v2")
+# (b): one Jamba pattern period (7 Mamba + 1 attention layers, 4 MoE); 5
+# layers (attention at offset 4, 2 MoE) where the host cannot pin 8
+JAMBA_LAYERS, JAMBA_SHORT = 8, 5
+JAMBA_REQUESTS, JAMBA_NEW, JAMBA_SEED = 4, 8, 14
+GEMMA_LONG = 5000            # (c): a prompt past Gemma-2's 4096 window
+GEMMA_SHORT = 4000           # (c): one that stays inside it
+VISION_S = 64                # (c): the cross checks' prompt
+SEAMLESS_FRAMES = 1024       # (c): Seamless's encoder input (a choice)
+ARCH_RESERVE = 6e9           # device bytes kept free beside the weights
+
+
+def open_gates(torch, params):
+    """``params`` with every cross-attention gate (a cross mixer's scalar
+    ``gate``, a VLM cross layer's ``mlp_gate``) set to 0.5 in place: at
+    their init of 0 (tanh 0) the cross path adds nothing, and a check of it
+    would see nothing."""
+    from repro_torch.tree import tree_map_with_path
+
+    def fix(path, t):
+        if path[-1] in ("gate", "mlp_gate") and t.dim() <= 1:
+            t.fill_(0.5)
+        return t
+
+    return tree_map_with_path(fix, params)
+
+
+def cross_source(torch, cfg, batch, seed, T=None, device="cpu"):
+    """A seeded source (batch, T, d_model) for a VLM's cross layers (its
+    vision tokens) or an audio arch's encoder (``T`` frames, 16 by
+    default) in ``cfg.dtype``; None for the other families."""
+    from repro_torch.device import torch_dtype
+    if cfg.family == "vlm":
+        T = T or cfg.n_vision_tokens
+    elif cfg.family != "audio":
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return (torch.randn((batch, T or 16, cfg.d_model), generator=g,
+                        device=device) * 0.1).to(torch_dtype(cfg.dtype))
+
+
+@contextlib.contextmanager
+def noncausal_k3():
+    """Counts K3's non-causal launches (cross-attention and the encoder)
+    while the block runs: ``models.attention.flash_attention`` wrapped."""
+    import repro_torch.models.attention as attention
+    real, seen = attention.flash_attention, {"noncausal": 0}
+
+    def wrapped(q, k, v, **kw):
+        if q.is_cuda and not kw.get("causal", True):
+            seen["noncausal"] += 1
+        return real(q, k, v, **kw)
+
+    attention.flash_attention = wrapped
+    try:
+        yield seen
+    finally:
+        attention.flash_attention = real
+
+
+def archs_phase(torch, kernels, name):
+    """(a) each new arch's smoke model on the card against the CPU, and
+    training steps; (b) Jamba-1.5-Large at published widths served
+    offloaded through the wave server; (c) every other new arch at
+    published widths.  Returns (ok, launch counts by tag)."""
+    t_phase = time.perf_counter()
+    free(torch)
+    ok, counts = True, {}
+    t0 = time.perf_counter()
+    for _, arch in ARCH_NEW:
+        ok = arch_parity(torch, arch) and ok
+    for arch in ARCH_TRAIN:
+        ok = train_parity(torch, kernels, arch, n_layers=None,
+                          bf16_floor=True) and ok
+    print(f"archs (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ok_b, counts["jamba"] = jamba_phase(torch, kernels, name)
+    print(f"archs (b): {'pass' if ok_b else 'FAIL'} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ok = ok and ok_b
+    for tag, arch in ARCH_NEW:
+        if tag == "jamba":
+            continue
+        t0 = time.perf_counter()
+        ok_c, counts[tag] = arch_full_width(torch, kernels, name, tag, arch)
+        print(f"archs (c) {tag}: {'pass' if ok_c else 'FAIL'} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ok = ok and ok_c
+    print(f"archs: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok, counts
+
+
+def arch_parity(torch, arch):
+    """(a): ``arch``'s smoke model (its whole period, bfloat16, cross gates
+    opened) on the card (kernels) against the CPU (plain versions): a
+    20-token prefill into caches (with a cross source where the arch has
+    cross layers), then two decode steps fed the CPU's greedy tokens.  The
+    first token's logits within 3e-2 relative to max |ref| and the same
+    token; a step whose MoE routing differs between the devices (a bf16
+    near-tie) is reported and not compared, and every step differing
+    fails."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.model import (apply_model, collect_field,
+                                          init_caches, init_model)
+    from repro_torch.tree import tree_map
+
+    cfg = make_smoke(get_config(arch)).replace(dtype="bfloat16",
+                                               param_dtype="bfloat16")
+    cpu = open_gates(torch, init_model(cfg, seed=1, device="cpu"))
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    src = cross_source(torch, cfg, 1, seed=3)
+    toks = torch.randint(0, cfg.vocab, (1, 20), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    n_cross = None if src is None else src.shape[1]
+    caches = {d: init_caches(cfg, 1, 40, device=d, n_cross=n_cross)
+              for d in ("cpu", "cuda")}
+    moe = cfg.moe is not None
+    checks, compared = [], 0
+    for step in range(3):
+        if step == 0:
+            inp, kw = toks, dict(positions=torch.arange(20, dtype=torch.int32),
+                                 cross_src=src, last_logit_only=True)
+        else:
+            inp, kw = nxt, dict(positions=torch.tensor([19 + step],
+                                                       dtype=torch.int32))
+        outs = {}
+        for d, p in (("cpu", cpu), ("cuda", gpu)):
+            kw_d = {k: (v.to(d) if torch.is_tensor(v) else v)
+                    for k, v in kw.items()}
+            lg, caches[d], infos = apply_model(p, inp.to(d), cfg,
+                                               caches=caches[d], trace=moe,
+                                               **kw_d)
+            outs[d] = (lg[:, -1, :cfg.vocab].float().cpu(),
+                       collect_field(infos, "topk_idx") if moe else None)
+        nxt = outs["cpu"][0].argmax(-1)[:, None].to(torch.int32)
+        checks.append(bool(torch.isfinite(outs["cuda"][0]).all()))
+        if moe and not torch.equal(outs["cuda"][1].cpu(), outs["cpu"][1]):
+            print(f"archs (a) {cfg.name} step {step}: routing diverged "
+                  "between devices (bf16 near-tie); logits not compared",
+                  flush=True)
+            continue
+        compared += 1
+        err = rel_err(outs["cuda"][0], outs["cpu"][0])
+        same = bool(torch.equal(outs["cuda"][0].argmax(-1),
+                                outs["cpu"][0].argmax(-1)))
+        good = err < BF16_TOL and (same or step > 0)
+        checks.append(good)
+        what = "first token" if step == 0 else f"decode step {step}"
+        print(f"archs (a) {cfg.name} {what}: logits rel_err={err:.3e}, "
+              f"same token {same} | "
+              f"{'pass' if good else 'FAIL'}", flush=True)
+    return all(checks) and compared > 0
+
+
+def model_bytes(cfg):
+    """bfloat16 bytes of ``cfg``'s parameters (``estimate_params``)."""
+    from repro_torch.launch.sharding import estimate_params
+    return 2 * estimate_params(cfg)
+
+
+def jamba_phase(torch, kernels, name):
+    """(b): Jamba-1.5-Large at published widths, one pattern period (8
+    layers: 7 Mamba + 1 attention, 4 MoE + 4 dense), random bf16 weights
+    from seed 0 with the routed stacks drawn into the pinned host store,
+    residual vectors calibrated through the slot pool; 4 ``MarkovCorpus``
+    requests x 8 new tokens at batch 2 through ``BatchServer`` with
+    ``dali``, pipelined, fetch tier, at cache ratio 0.25 and a second
+    ratio (0.5 where its pool and staging fit on the card, else 0.125):
+    identical tokens, K1, K4 and K3 launched (counts zeroed just before the
+    serves and read just after)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.config import layer_pattern
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("jamba-1.5-large-398b")
+    m = full.moe
+    expert_b = 3 * full.d_model * m.d_expert * 2
+    n_moe = lambda n: sum(1 for _, k in layer_pattern(full.replace(
+        n_layers=n)) if k == "moe")
+    avail, waited = settled_mem_available(torch)
+    need = n_moe(JAMBA_LAYERS) * m.n_routed * expert_b
+    layers = JAMBA_LAYERS if need + HOST_RESERVE < avail else JAMBA_SHORT
+    cfg = full.replace(n_layers=layers)
+    pat = layer_pattern(cfg)
+    print(f"archs (b): {cfg.name} at published widths (d_model "
+          f"{cfg.d_model}, {m.n_routed} experts top-{m.top_k} of d_ff "
+          f"{m.d_expert} on every other layer, Mamba-2/SSD d_state "
+          f"{cfg.mamba.d_state} head_dim {cfg.mamba.head_dim}, "
+          f"{cfg.attn.n_heads}q/{cfg.attn.n_kv_heads}kv heads, vocab "
+          f"{cfg.vocab}); depth cut from {full.n_layers} to {layers} "
+          f"layers: {sum(x == 'mamba' for x, _ in pat)} Mamba + "
+          f"{sum(x == 'attn' for x, _ in pat)} attention, "
+          f"{sum(k == 'moe' for _, k in pat)} MoE; host MemAvailable "
+          f"{avail / 1e9:.1f} GB (settled in {waited:.0f} s), "
+          f"{need / 1e9:.1f} GB of experts at {JAMBA_LAYERS} layers"
+          + ("" if layers == JAMBA_LAYERS else
+             f" do not fit beside {HOST_RESERVE / 2**30:.0f} GiB: "
+             f"{layers} layers instead, the shortest prefix with the "
+             "attention layer and 2 MoE layers"), flush=True)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda", experts="host")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    total = sum(t.numel() * t.element_size() for t in leaves)
+    host = sum(t.numel() * t.element_size() for t in leaves if not t.is_cuda)
+    print(f"archs (b): random weights from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s: {total / 1e9:.2f} GB of "
+          f"weights, {host / 1e9:.2f} GB of routed experts pinned on the "
+          f"host, {(total - host) / 1e9:.2f} GB on the card", flush=True)
+
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(JAMBA_SEED)
+    prompts = [corpus.sample(rng, int(rng.integers(24, 129)))
+               for _ in range(JAMBA_REQUESTS)]
+    calib = np.stack([corpus.sample(rng, 32) for _ in range(2)])
+
+    def resolve(ratio):
+        return ServeSpec(cfg=cfg, server="wave", policy="dali",
+                         dali_cfg=default_dali_config(cfg, cache_ratio=ratio),
+                         batch_size=2, max_len=MAX_LEN, eos_id=-1,
+                         offload=OffloadSpec(mode="pipelined")).resolve(params)
+
+    free_b = torch.cuda.mem_get_info()[0]
+    second = None
+    for ratio in (0.5, 0.125):
+        lay = resolve(ratio).store.memory_layout()
+        fits = lay["prefill_peak_bytes"] + ARCH_RESERVE < free_b
+        print(f"archs (b): cache ratio {ratio}: pool + prefill staging "
+              f"{lay['prefill_peak_bytes'] / 1e9:.2f} GB against "
+              f"{free_b / 1e9:.2f} GB free on the card -> "
+              f"{'fits' if fits else 'does not fit'}", flush=True)
+        if fits:
+            second = ratio
+            break
+    ratios = (0.25, second or 0.125)
+    rs = resolve(ratios[0])
+    t0 = time.perf_counter()
+    res = slot_res_vecs(rs, cfg, calib, n_decode=4)
+    print(f"archs (b): residual vectors calibrated through the slot pool "
+          f"(2 x 32 tokens, 4 decode steps) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    outs, ok = {}, True
+    kernels.reset_launch_counts()          # the Jamba path starts here
+    torch.cuda.reset_peak_memory_stats()
+    for ratio in ratios:
+        rs = resolve(ratio)
+        server, done, wall = run_requests(torch, rs.server(res_vecs=res),
+                                          prompts, JAMBA_NEW)
+        mt, st = server.metrics, server.store.stats()
+        outs[ratio] = {r.rid: r.output for r in done}
+        streamed = st["h2d_rows"] + st["prefill_fetch_rows"] \
+            + st["fallback_fetches"]
+        nbytes = streamed * server.store.expert_bytes
+        ok = ok and len(done) == JAMBA_REQUESTS and all(
+            len(r.output) == JAMBA_NEW for r in done)
+        print(f"archs (b) {cfg.name} {layers} layers wave pipelined fetch "
+              f"cache_ratio={ratio} ({server.store.n_slots} of "
+              f"{m.n_routed} slots a layer): {len(done)} requests, "
+              f"{mt.steps} steps in {wall:.2f} s | prefill "
+              f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s, decode "
+              f"{mt.decode_tokens / mt.decode_s:.1f} tok/s | experts "
+              f"streamed {streamed} ({st['h2d_rows']} pool rows, "
+              f"{st['prefill_fetch_rows']} prefill wave rows in "
+              f"{st['prefill_waves']} waves, {st['fallback_fetches']} miss "
+              f"fetches) = {nbytes / 1e9:.1f} GB, {nbytes / 1e9 / wall:.1f} "
+              f"GB/s over the serve's wall time | "
+              f"{mt.dali.summary()} | on {name}", flush=True)
+        del server, rs
+        free(torch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    same = outs[ratios[0]] == outs[ratios[1]]
+    launched = all(counts[k] > 0 for k in ("gating", "expert_ffn_grouped",
+                                           "flash_attention"))
+    print(f"archs (b): tokens identical at cache ratios {ratios}: {same} | "
+          f"kernel launches {json.dumps(counts)}; gating, "
+          f"expert_ffn_grouped and flash_attention each launched: "
+          f"{launched} | peak device memory {peak / 1e9:.2f} GB beside "
+          f"{total / 1e9:.2f} GB of weights at {layers} layers | on {name}",
+          flush=True)
+    del params, leaves
+    free(torch)
+    return ok and same and launched, counts
+
+
+def arch_depth(torch, full, host_experts):
+    """The deepest depth of ``full`` (up to all its layers) whose weights
+    fit on the card with ``ARCH_RESERVE`` to spare, and two blocks more
+    while ``init_model`` builds a stack: the block being drawn, and the
+    allocator's cached float32 draws, which a stack's one large allocation
+    cannot reuse (Llama-3-405B at 9 layers failed so on the H100; none
+    with ``host_experts``: each block's experts leave for the host)."""
+    free_b = torch.cuda.mem_get_info()[0]
+    n = full.n_layers
+    while n > 1:
+        nbytes = model_bytes(full.replace(n_layers=n))
+        block = nbytes - model_bytes(full.replace(n_layers=n - 1))
+        if nbytes + (0 if host_experts else 2 * block) + ARCH_RESERVE \
+                < free_b:
+            break
+        n -= 1
+    return n, free_b
+
+
+def arch_full_width(torch, kernels, name, tag, arch):
+    """(c): ``arch`` at published widths, random bf16 weights from seed 0,
+    at full depth where the weights fit beside what the process holds,
+    else the depth that fits (printed); full-resident (an MoE arch's
+    experts are drawn through the host, so no block is held twice on the
+    card, then moved to it).  2 requests x 8 tokens at batch 2 (the wave
+    server for an SSM arch); the kernels the arch runs must launch.
+    Gemma-2 then decodes after a 5000-token prompt within 3e-2 of its
+    recompute; the vision and Seamless models run a cross source (1601
+    vision tokens; 1024 frames through the encoder) through prefill, one
+    decode step and the recompute, K3 non-causal launched."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.models.config import layer_pattern
+    from repro_torch.models.model import init_model
+    from repro_torch.models.moe import is_expert_leaf
+    from repro_torch.serving.spec import ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    free(torch)
+    full = get_config(arch)
+    moe = full.moe is not None
+    layers, free_b = arch_depth(torch, full, host_experts=moe)
+    cfg = full.replace(n_layers=layers)
+    pat = layer_pattern(cfg)
+    print(f"archs (c) {cfg.name}: d_model {cfg.d_model}, "
+          f"{full.n_layers} layers published, {layers} built "
+          f"({model_bytes(cfg) / 1e9:.2f} GB of weights against "
+          f"{free_b / 1e9:.2f} GB free on the card"
+          + (")" if layers == full.n_layers else
+             f"; {full.n_layers} would need "
+             f"{model_bytes(full) / 1e9:.1f} GB)"), flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda",
+                        experts="host" if moe else "device")
+    if moe:                                # the experts onto the card
+        params = tree_map_with_path(
+            lambda path, t: t.to("cuda") if is_expert_leaf(path, cfg)
+            else t, params)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"archs (c) {cfg.name}: random weights from seed 0, "
+          f"{weights / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ssm = any(x == "mamba" for x, _ in pat)
+    need = ([] if ssm and cfg.attn is None else ["flash_attention"]) + (
+        [] if not moe else ["gating_warp" if cfg.moe.n_routed > 32
+                            else "gating", "expert_ffn_ragged",
+                            "expert_ffn_grouped"])
+    rng = np.random.default_rng(3)
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    prompts = [corpus.sample(rng, int(rng.integers(24, 201)))
+               for _ in range(2)]
+    spec = ServeSpec(cfg=cfg, server="wave" if ssm else "continuous",
+                     policy="dali" if moe else "none",
+                     dali_cfg=default_dali_config(cfg, cache_ratio=0.5),
+                     batch_size=2, max_len=MAX_LEN, eos_id=-1)
+    kernels.reset_launch_counts()          # this arch's path starts here
+    server, done, wall = run_requests(torch, spec.resolve(params).server(),
+                                      prompts, 8)
+    mt = server.metrics
+    ok = len(done) == 2 and all(len(r.output) == 8 for r in done)
+    print(f"archs (c) {cfg.name} {layers} layers full-resident "
+          f"{spec.server} batch=2: {len(done)} requests, {mt.steps} steps "
+          f"in {wall:.2f} s | decode {mt.decode_tokens / mt.decode_s:.1f} "
+          f"tok/s, prefill {mt.prefill_tokens / mt.prefill_s:.1f} tok/s | "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB | {'pass' if ok else 'FAIL'} | on {name}", flush=True)
+    del server
+    if tag == "gemma2":
+        ok = gemma_long_check(torch, cfg, params, corpus, name) and ok
+    elif tag in ("vision", "seamless"):
+        ok = cross_check(torch, cfg, params, corpus, name) and ok
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    launched = all(counts[k] > 0 for k in need)
+    print(f"archs (c) {cfg.name}: kernel launches {json.dumps(counts)}; "
+          + (f"{', '.join(need)} launched: {launched}" if need else
+             "it needs no kernel (attention-free, no MoE)"), flush=True)
+    del params
+    free(torch)
+    return ok and launched, counts
+
+
+def gemma_long_check(torch, cfg, params, corpus, name):
+    """Gemma-2 after a prompt of ``GEMMA_LONG`` tokens, past its 4096-token
+    window (the local layers' rolling caches wrap: the ring repair at full
+    width): admitted at exact length by the continuous server, then
+    prefilled and decoded one step directly.  The local caches must hold
+    the window's positions at slot ``pos % window``, and the decode's
+    logits must be within 3e-2 of the recompute of prompt + token at 8
+    layers (the first 8 of the same weights).  At all 42 layers bf16 alone
+    puts decode and recompute ~4.5e-2 apart with no wrap at all (PERF.md
+    §6, PR 20), so there the wrapped prompt must stay within 1.5x of a
+    ``GEMMA_SHORT``-token prompt that does not wrap."""
+    import numpy as np
+
+    from repro_torch.models.model import apply_model, init_caches
+    from repro_torch.serving.spec import ServeSpec
+    from repro_torch.tree import tree_map
+
+    rng = np.random.default_rng(5)
+    prompt = corpus.sample(rng, GEMMA_LONG)
+    max_len = GEMMA_LONG + 8
+    t0 = time.perf_counter()
+    server, done, _ = run_requests(torch, ServeSpec(
+        cfg=cfg, server="continuous", policy="none", batch_size=1,
+        max_len=max_len, eos_id=-1).resolve(params).server(), [prompt], 2)
+    served = done[0].output
+    del server
+    W = cfg.attn.sliding_window
+
+    def decode_vs_recompute(c, p, L):
+        dev = "cuda"
+        toks = torch.as_tensor(prompt[None, :L], device=dev)
+        caches = init_caches(c, 1, L + 8, device=dev)
+        lg, caches, _ = apply_model(
+            p, toks, c, positions=torch.arange(L, dtype=torch.int32,
+                                               device=dev),
+            caches=caches, last_logit_only=True)
+        first = lg[:, -1:].argmax(-1).to(torch.int32)
+        dec, _, _ = apply_model(p, first, c, positions=torch.tensor(
+            [L], dtype=torch.int32, device=dev), caches=caches)
+        full, _, _ = apply_model(p, torch.cat([toks, first], 1), c,
+                                 last_logit_only=True)
+        # after the decode the local cache holds L + 1 - W .. L
+        pos = caches["scan"][0]["pos"][0, 0].long().cpu()
+        kept = torch.arange(max(0, L + 1 - W), L + 1)
+        ring = bool(torch.equal(pos[kept % pos.numel()], kept))
+        V = c.vocab
+        return (rel_err(dec[:, -1, :V], full[:, -1, :V]), ring,
+                [int(first), int(dec[0, -1, :V].argmax())],
+                int(dec[0, -1, :V].argmax()) == int(full[0, -1, :V].argmax()))
+
+    e_long, ring, direct, same = decode_vs_recompute(cfg, params, GEMMA_LONG)
+    e_short, _, _, _ = decode_vs_recompute(cfg, params, GEMMA_SHORT)
+    c8 = cfg.replace(n_layers=8)
+    p8 = dict(params, scan=tuple(tree_map(lambda a: a[:4], st)
+                                 for st in params["scan"]))
+    e8, ring8, _, same8 = decode_vs_recompute(c8, p8, GEMMA_LONG)
+    torch.cuda.synchronize()
+    ok = (ring and ring8 and same and same8 and e8 < BF16_TOL
+          and e_long <= 1.5 * e_short)
+    print(f"archs (c) {cfg.name}: a {GEMMA_LONG}-token prompt past the "
+          f"{W}-token window (the prefill wraps the local caches at slot "
+          f"{(GEMMA_LONG - W) % W}): every kept position at slot pos % {W}: "
+          f"{ring and ring8}; first decode step against the recompute "
+          f"rel_err={e8:.3e} at 8 layers (limit {BF16_TOL}), {e_long:.3e} "
+          f"at {cfg.n_layers} layers against {e_short:.3e} for a "
+          f"{GEMMA_SHORT}-token prompt that does not wrap (limit 1.5x); "
+          f"same token "
+          f"{same and same8}; the continuous server (exact-length admission)"
+          f" gave {served}, the direct path {direct} | "
+          f"{time.perf_counter() - t0:.1f} s | {'pass' if ok else 'FAIL'} "
+          f"| on {name}", flush=True)
+    return ok
+
+
+def cross_check(torch, cfg, params, corpus, name):
+    """A VLM (1601 vision tokens) or Seamless (``SEAMLESS_FRAMES`` frames
+    through its encoder) at full width with its cross gates opened: a
+    full forward with the cross source, then a prefill into caches and one
+    decode step, within 3e-2 of the recompute of prompt + token (the
+    reference test's check); K3 runs non-causal (counted)."""
+    import numpy as np
+
+    from repro_torch.models.model import apply_model, init_caches
+
+    open_gates(torch, params)
+    dev = "cuda"
+    src = cross_source(torch, cfg, 1, seed=7, device=dev,
+                       T=SEAMLESS_FRAMES if cfg.family == "audio" else None)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(corpus.sample(rng, VISION_S)[None], device=dev)
+    S = VISION_S
+    t0 = time.perf_counter()
+    with noncausal_k3() as seen:
+        lg, _, _ = apply_model(params, toks, cfg, cross_src=src,
+                               last_logit_only=True)
+        n_cross = src.shape[1] if cfg.family == "vlm" else SEAMLESS_FRAMES
+        caches = init_caches(cfg, 1, S + 8, device=dev, n_cross=n_cross)
+        pf, caches, _ = apply_model(
+            params, toks, cfg, positions=torch.arange(
+                S, dtype=torch.int32, device=dev), caches=caches,
+            cross_src=src, last_logit_only=True)
+        nxt = pf[:, -1:].argmax(-1).to(torch.int32)
+        dec, _, _ = apply_model(params, nxt, cfg, positions=torch.tensor(
+            [S], dtype=torch.int32, device=dev), caches=caches)
+        full, _, _ = apply_model(params, torch.cat([toks, nxt], 1), cfg,
+                                 cross_src=src, last_logit_only=True)
+        torch.cuda.synchronize()
+    V = cfg.vocab
+    err = rel_err(dec[:, -1, :V], full[:, -1, :V])
+    pf_err = rel_err(pf[:, -1, :V], lg[:, -1, :V])
+    ok = (err < BF16_TOL and pf_err < BF16_TOL and seen["noncausal"] > 0
+          and bool(torch.isfinite(dec[..., :V]).all()))
+    what = (f"{src.shape[1]} vision tokens" if cfg.family == "vlm" else
+            f"{SEAMLESS_FRAMES} frames through the "
+            f"{cfg.encoder.n_layers}-layer encoder")
+    print(f"archs (c) {cfg.name}: cross source of {what}, gates opened "
+          f"to 0.5: prefill against the full forward rel_err={pf_err:.3e}, "
+          f"first decode step against the recompute rel_err={err:.3e}; K3 "
+          f"non-causal launches {seen['noncausal']} | "
+          f"{time.perf_counter() - t0:.1f} s | {'pass' if ok else 'FAIL'} "
+          f"| on {name}", flush=True)
+    del caches
+    return ok
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -2607,6 +3345,9 @@ def main():
     print(f"examples: kernel launches {json.dumps(example_counts)}",
           flush=True)
 
+    # -- phase 14: the remaining architectures -------------------------------
+    archs_ok, arch_counts = archs_phase(torch, kernels, card)
+
     out = []
     for r in rows:
         # a row at the offload path's, the wave's, training's, a phase-10
@@ -2617,6 +3358,7 @@ def main():
                 else long_counts if tag == "long"
                 else train_counts if tag == "train"
                 else model_counts[tag] if tag in model_counts
+                else arch_counts[tag] if tag in arch_counts
                 else counts)
         out.append({"name": f"{r['name']} [{r['shape']}]", "route": "cuda",
                     "source": SOURCE[r["name"]],
@@ -2632,6 +3374,8 @@ def main():
                     "launches_faults_little": fault_counts[r["name"]],
                     "launches_long": long_counts[r["name"]],
                     "launches_examples": example_counts[r["name"]],
+                    **{f"launches_{t}": c[r["name"]]
+                       for t, c in arch_counts.items()},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2655,6 +3399,7 @@ def main():
                               ("faults", faults_ok),
                               ("long", long_ok),
                               ("examples", examples_ok),
+                              ("archs", archs_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

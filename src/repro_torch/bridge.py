@@ -3,8 +3,10 @@
 The input is the reference's pytree as numpy arrays (for a JAX pytree:
 ``jax.tree.map(np.asarray, params)``, done by the caller, so this module
 imports no JAX).  Nesting is kept: dicts stay dicts, tuples stay tuples
-(``prefix``, ``scan``), and ``scan`` leaves stay stacked ``(n_super,
-...)``.  The same function carries a reference policy state (its random
+(``prefix``, ``scan``, an encoder's ``stack``), ``scan`` leaves stay
+stacked ``(n_super, ...)``, and every leaf keeps its dtype (a Mamba
+layer's float32 ``dt_bias`` / ``A_log`` / ``D`` beside bfloat16
+projections, a cross layer's 0-d ``gate``).  The same function carries a reference policy state (its random
 initial resident set comes from ``jax.random``, which torch cannot
 reproduce).
 

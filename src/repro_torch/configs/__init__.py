@@ -1,5 +1,4 @@
-"""Architecture config registry (a copy of ``repro/configs/__init__.py``
-restricted to what the port serves so far).
+"""Architecture config registry (a copy of ``repro/configs/__init__.py``).
 
 Each architecture lives in its own module exposing ``CONFIG`` at its
 published widths; ``make_smoke`` builds the reduced same-family variant
@@ -9,14 +8,28 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.models.config import MLAConfig, EncoderConfig, ModelConfig, scan_pattern
+from repro_torch.models.config import (EncoderConfig, MLAConfig, ModelConfig,
+                                       scan_pattern)
 
-# architectures the port has a config module for: the paper's three
-# evaluation models (later slices add the rest of the JAX package's
-# registry, ROADMAP.md queue 1)
-ARCHS: List[str] = ["mixtral_8x7b", "qwen3_30b_a3b", "deepseek_v2_lite_16b"]
+ARCHS: List[str] = [
+    "seamless_m4t_large_v2",
+    "llama3_405b",
+    "llama4_maverick_400b_a17b",
+    "qwen3_32b",
+    "llama_3_2_vision_11b",
+    "deepseek_v2_lite_16b",
+    "gemma2_9b",
+    "jamba_1_5_large_398b",
+    "olmo_1b",
+    "mamba2_780m",
+    # the paper's own evaluation models (DeepSeek-V2-Lite is assigned above)
+    "mixtral_8x7b",
+    "qwen3_30b_a3b",
+]
+
+ASSIGNED: List[str] = ARCHS[:10]
 
 
 def canonical(name: str) -> str:
@@ -24,14 +37,12 @@ def canonical(name: str) -> str:
 
 
 def get_config(name: str) -> ModelConfig:
-    if canonical(name) not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
-            "\"Remaining architectures\": dense, cross-attention, "
-            "encoder-decoder, Mamba and hybrid families); the port serves: "
-            + ", ".join(ARCHS))
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCHS}
 
 
 def make_smoke(cfg: ModelConfig) -> ModelConfig:

@@ -8,7 +8,9 @@ keys and attends blockwise at or above it (``mha_blockwise``, the
 reference's ``_mha_blockwise``: an online softmax over blocks of keys,
 query slab by query slab), so its memory stays bounded at long prompts.
 q (B, Sq, Hq, D); k / v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype;
-the kernel takes D % 16 == 0 up to ``MAX_D`` = 256.
+the kernel takes D % 16 == 0 up to ``MAX_D`` = 256 and query groups
+(Hq / Hkv) that divide 64; a group that does not attends over K/V heads
+repeated to one per query head.
 When autograd needs a gradient (training on the card) the launch runs
 inside ``FlashAttentionFn``, whose backward recomputes through
 ``flash_attention_plain``; otherwise ``flash_attention`` launches
@@ -152,6 +154,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"k/v must be (B, Sk, Hkv, {D}) matching q, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     Hkv = k.shape[2]
+    if Hkv and Hq % Hkv == 0 and 64 % (Hq // Hkv):
+        # the kernel packs a KV head's G query heads into one 64-row tile,
+        # so G must divide 64; a group that does not (Llama-4: 40 / 8 = 5)
+        # attends over its K/V heads repeated G times (G = 1)
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+        Hkv = Hq
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous():

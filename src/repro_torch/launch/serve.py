@@ -5,9 +5,19 @@ wave server, ``--server wave``) with a registered offload policy
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --requests 16 --max-new 32 --server continuous --policy dali
 
-``--arch`` is one of the paper's three evaluation models: mixtral-8x7b,
-qwen3-30b-a3b (qk-norm, 128 experts top-8) or deepseek-v2-lite-16b (MLA,
-a dense first layer, 2 shared experts beside 64 routed top-6).
+``--arch`` is any of the twelve architectures of ``repro_torch.configs``:
+the paper's three evaluation models, mixtral-8x7b, qwen3-30b-a3b (qk-norm,
+128 experts top-8) and deepseek-v2-lite-16b (MLA, a dense first layer, 2
+shared experts beside 64 routed top-6); the MoE llama4-maverick-400b-a17b
+(128 experts top-1, sigmoid router, a shared expert) and
+jamba-1.5-large-398b (Mamba layers with attention on 1 in 8, 16 experts
+top-2 on every other layer); the dense llama3-405b, qwen3-32b, olmo-1b
+(non-parametric LayerNorm) and gemma2-9b (local / global windows,
+softcaps, sandwich norms); mamba2-780m (SSD); and llama-3.2-vision-11b and
+seamless-m4t-large-v2 (cross-attention; served, as by the JAX launcher,
+with empty cross caches).  SSM and hybrid archs need ``--server wave``:
+the continuous server refuses them, as the reference's does.  A dense or
+SSM arch serves without the policy (``default_dali_config`` is None).
 
 As the JAX launcher does, it first trains the model ``--train-steps``
 AdamW steps on the ``MarkovCorpus`` (batch 8 x 64 tokens,

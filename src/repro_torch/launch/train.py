@@ -24,8 +24,11 @@ def train_loop(cfg, steps: int, batch: int, seq: int, lr: float = 1e-3,
     """``steps`` AdamW steps on ``batch`` x ``seq`` Markov batches, from
     ``params`` (updated in place) or from ``init_model(cfg, seed)``.
     Returns ``(params, opt_state, history)``, ``history`` the per-step
-    cross-entropy.  With ``ckpt_dir`` the final params and optimizer state
+    cross-entropy.  A VLM or audio arch trains against the reference's
+    constant cross source (0.02 everywhere; 16 audio frames, or up to 16
+    vision tokens).  With ``ckpt_dir`` the final params and optimizer state
     are saved there."""
+    import numpy as np
     import torch
 
     from repro_torch.checkpoint.store import CheckpointManager
@@ -33,10 +36,8 @@ def train_loop(cfg, steps: int, batch: int, seq: int, lr: float = 1e-3,
     from repro_torch.device import resolve_device
     from repro_torch.models.model import init_model
     from repro_torch.training.optimizer import OptConfig, init_adamw
-    from repro_torch.training.train_step import CROSS_SRC, make_train_step
+    from repro_torch.training.train_step import make_train_step
 
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(CROSS_SRC)
     dev = resolve_device(device)
     if params is None:
         params = init_model(cfg, seed=seed, device=dev)
@@ -50,6 +51,11 @@ def train_loop(cfg, steps: int, batch: int, seq: int, lr: float = 1e-3,
     history = []
     t0 = time.time()
     for i, b in enumerate(batches(corpus, batch, seq, steps, seed=seed)):
+        if cfg.family in ("vlm", "audio"):
+            # the reference's stand-in for vision / audio embeddings
+            T = 16 if cfg.family == "audio" else min(cfg.n_vision_tokens, 16)
+            b = dict(b, cross_src=np.full((batch, T, cfg.d_model), 0.02,
+                                          np.float32))
         params, opt, m = step_fn(params, opt,
                                  {k: torch.as_tensor(v, device=dev)
                                   for k, v in b.items()})

@@ -1,12 +1,15 @@
-"""Self-attention with a per-slot cache: GQA (rope, qk-norm, sliding
-window, softcap) and MLA, DeepSeek-V2's multi-head latent attention (port
-of ``repro/models/attention.py`` without cross-attention).
+"""Attention variants (port of ``repro/models/attention.py``): GQA (rope,
+qk-norm, sliding window, softcap), MLA, DeepSeek-V2's multi-head latent
+attention, and cross-attention (VLM cross layers, the encoder-decoder's
+decoder).
 
 Cache convention (as in the reference): one dict per layer,
 ``{"k": (B, S_c, Hkv, D), "v": (B, S_c, Hkv, D), "pos": (B, S_c)}`` for
 GQA and ``{"ckv": (B, S_c, R), "kpe": (B, S_c, Dr), "pos": (B, S_c)}`` for
 MLA, where ``pos`` holds each row's absolute position per slot (-1 =
-empty) and every mask is derived from it.  ``positions`` is ``(S,)``
+empty) and every mask is derived from it; cross-attention reads static
+``{"k", "v"}`` (B, T_src, H, D) built from the source by ``build_cross_kv``.
+``positions`` is ``(S,)``
 shared by the batch (prefill) or ``(B, S)`` per row (decode: the
 continuous server's per-slot positions, or the wave's shared position
 broadcast to ``(B, 1)``, which writes and masks as the shared position
@@ -14,15 +17,22 @@ does and is never read on the host).
 
 Unlike the reference, ``_update_cache`` writes into the cache tensors in
 place (the caller's cache dict is updated and returned): a serving step
-then never copies a layer's whole cache to change one row.
+then never copies a layer's whole cache to change one row.  A rolling
+(sliding-window) cache keeps every position at slot ``pos % S_c``, also
+for a prefill longer than the window whose length the window does not
+divide: the write wraps around the buffer in two pieces.  The reference's
+``dynamic_update_slice`` clamps that write to slot 0 (ROADMAP.md, "Notes
+on the reference").
 
 Prefill (S > 1) runs the flash-attention kernel K3 over the fresh keys and
 values: GQA's at its head width, MLA's over the decompressed per-head
 keys of width ``qk_nope + qk_rope`` (192 for DeepSeek-V2-Lite) with the
 values zero-padded to that width and the output sliced back, since K3
-has one head width D as the Pallas kernel has.  ``_mha`` (the float32
-attention of decode and of K3's plain version) attends blockwise from
-``BLOCKWISE_KV_THRESHOLD`` keys on, as the reference's does.  Decode
+has one head width D as the Pallas kernel has; cross-attention's
+non-causal over the source (Sq != Sk: the kernel's suffix-aligned query
+positions matter only under a causal mask or a window).  ``_mha`` (the
+float32 attention of decode and of K3's plain version) attends blockwise
+from ``BLOCKWISE_KV_THRESHOLD`` keys on, as the reference's does.  Decode
 attends over the cache in plain PyTorch, as the JAX package does it
 outside any Pallas kernel (K3 has no per-row position mask); MLA's
 absorbed decode attends in the latent space in float32.
@@ -48,12 +58,8 @@ NEG_INF = -1e30
 
 def init_attention(gen, cfg: ModelConfig, device, kind: str = "attn"):
     a = cfg.attn
-    if kind == "cross":
-        raise NotImplementedError(
-            "cross-attention is ported with its architectures (ROADMAP.md "
-            "queue 1, \"Remaining architectures\")")
     d, dt = cfg.d_model, cfg.param_dtype
-    if a.mla is not None:
+    if a.mla is not None and kind != "cross":
         m = a.mla
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
         # with a query LoRA, wq maps the normalised rank-q_lora_rank query
@@ -77,15 +83,20 @@ def init_attention(gen, cfg: ModelConfig, device, kind: str = "attn"):
                                       dtype=torch_dtype(dt), device=device)
         return p
     hd = cfg.head_dim()
+    # cross-attention: K and V with every query head, q/k norms and a
+    # tanh gate (Llama-3.2-Vision's cross layers)
+    n_kv = a.n_heads if kind == "cross" else a.n_kv_heads
     p = {
         "wq": dense_init(gen, (d, a.n_heads * hd), dt, device),
-        "wk": dense_init(gen, (d, a.n_kv_heads * hd), dt, device),
-        "wv": dense_init(gen, (d, a.n_kv_heads * hd), dt, device),
+        "wk": dense_init(gen, (d, n_kv * hd), dt, device),
+        "wv": dense_init(gen, (d, n_kv * hd), dt, device),
         "wo": dense_init(gen, (a.n_heads * hd, d), dt, device),
     }
-    if a.qk_norm:
+    if a.qk_norm or kind == "cross":
         p["q_norm"] = torch.zeros((hd,), dtype=torch_dtype(dt), device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=torch_dtype(dt), device=device)
+    if kind == "cross":
+        p["gate"] = torch.zeros((), dtype=torch_dtype(dt), device=device)
     return p
 
 
@@ -93,10 +104,11 @@ def _update_cache(cache, positions, **new):
     """Write new tokens (each ``new`` entry (B, S, ...) into the cache
     entry of its name) IN PLACE and return the cache.
 
-    Shared positions (S,): a contiguous write from slot positions[0] % S_c
-    (the chunk must not wrap the buffer; a chunk longer than the buffer
-    keeps its last S_c tokens).  Per-slot positions (B, S): each row
-    scatters to its own slots."""
+    Shared positions (S,): every position lands at slot ``pos % S_c``; a
+    chunk longer than the buffer keeps its last S_c tokens, and a chunk
+    that runs past the buffer's end wraps to its start (two contiguous
+    writes).  Per-slot positions (B, S): each row scatters to its own
+    slots."""
     S_c = cache["pos"].shape[1]
     if positions.dim() == 2:
         slot = (positions % S_c).long()                       # (B, S)
@@ -113,9 +125,13 @@ def _update_cache(cache, positions, **new):
     # the start slot is read on the host: prefill positions are a host-side
     # arange, so this costs no device round trip on the serving path
     start = int(positions[0]) % S_c
+    head = min(S, S_c - start)           # slots start.. before the wrap
+    new["pos"] = positions[None].expand(cache["pos"].shape[0], S)
     for key, t in new.items():
-        cache[key][:, start:start + S] = t.to(cache[key].dtype)
-    cache["pos"][:, start:start + S] = positions.to(cache["pos"].dtype)
+        dst = cache[key]
+        dst[:, start:start + head] = t[:, :head].to(dst.dtype)
+        if head < S:
+            dst[:, :S - head] = t[:, head:].to(dst.dtype)
     return cache
 
 
@@ -239,3 +255,48 @@ def _mla_decompress(params, ckv, kpe, H, nope, rp, vd):
     k = torch.cat([k_nope, kpe.expand(B, Sk, H, rp).to(k_nope.dtype)],
                   dim=-1)
     return k, v
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (VLM cross layers / enc-dec decoder)
+# --------------------------------------------------------------------------
+
+def build_cross_kv(params, src, cfg: ModelConfig):
+    """Keys and values (B, T, H, D) of the encoder / vision embeddings
+    ``src`` (B, T, d), every query head its own."""
+    a = cfg.attn
+    hd = cfg.head_dim()
+    B, T, _ = src.shape
+    k = (src @ params["wk"]).reshape(B, T, a.n_heads, hd)
+    v = (src @ params["wv"]).reshape(B, T, a.n_heads, hd)
+    if "k_norm" in params:
+        k = rms_norm_vec(params["k_norm"], k)
+    return {"k": k, "v": v}
+
+
+def cross_attention(params, x, cfg: ModelConfig, cross_kv):
+    """x (B, S, d) attends to every source position, unmasked.  A prompt
+    (S > 1) runs K3 non-causal over the T source keys; decode (S = 1)
+    attends in plain PyTorch, as the self-attention's decode does."""
+    a = cfg.attn
+    hd = cfg.head_dim()
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, a.n_heads, hd)
+    if "q_norm" in params:
+        q = rms_norm_vec(params["q_norm"], q)
+    k, v = cross_kv["k"], cross_kv["v"]
+    scale = 1.0 / math.sqrt(hd)
+    if S > 1:
+        y = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=False, scale=scale)
+        y = y.reshape(B, S, a.n_heads * hd)
+    else:
+        T = k.shape[1]
+        zeros = lambda n: torch.zeros((n,), dtype=torch.int32,
+                                      device=x.device)
+        y = _mha(q, k, v, zeros(S), zeros(T), causal=False, window=0,
+                 softcap=0.0, scale=scale)
+    y = y @ params["wo"]
+    if "gate" in params:
+        y = torch.tanh(params["gate"].float()).to(y.dtype) * y
+    return y

@@ -1,8 +1,17 @@
-"""Transformer block assembly (port of ``repro/models/blocks.py`` for
-self-attention mixers, GQA or MLA, with a dense or MoE MLP).
+"""Transformer/SSD block assembly (port of ``repro/models/blocks.py``).
+
+One block = mixer (attention variant or mamba) + MLP (dense, MoE or none),
+with pre-norms (and Gemma-2's post-norms when ``cfg.post_block_norm``).
 
 ``apply_block(params, x, cfg, kinds, ...) -> (y, new_cache, moe_info)``
 where ``kinds = (mixer_kind, mlp_kind)`` from ``config.layer_pattern``.
+
+Cache dicts per mixer kind (written in place, like every cache of the
+port):
+  attn*:       {"k","v","pos"} (MLA: {"ckv","kpe","pos"})
+  mamba:       {"ssm","conv_x","conv_B","conv_C"}
+  cross:       {"xk","xv"}              (static cross K/V, built at prefill)
+  self_cross:  {"k","v","pos","xk","xv"}
 """
 from __future__ import annotations
 
@@ -12,84 +21,140 @@ import torch
 
 from repro_torch.device import torch_dtype
 
-from .attention import gqa_attention, init_attention, mla_attention
+from .attention import (build_cross_kv, cross_attention, gqa_attention,
+                        init_attention, mla_attention)
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .mamba import apply_mamba, init_mamba, init_mamba_cache
 from .moe import apply_moe, init_moe
-
-ATTN_KINDS = ("attn", "attn_local", "attn_global")
-
-
-def _check_kinds(cfg: ModelConfig, kinds):
-    mixer_kind, mlp_kind = kinds
-    if mixer_kind not in ATTN_KINDS or mlp_kind not in ("dense", "moe") \
-            or cfg.post_block_norm:
-        raise NotImplementedError(
-            f"block {kinds} (post_block_norm={cfg.post_block_norm}) is ported "
-            "with the remaining architectures (ROADMAP.md queue 1, "
-            "\"Remaining architectures\")")
 
 
 def init_block(gen, cfg: ModelConfig, kinds, device):
-    _check_kinds(cfg, kinds)
     mixer_kind, mlp_kind = kinds
-    return {
-        "norm1": init_norm(cfg, device),
-        "mixer": init_attention(gen, cfg, device, kind=mixer_kind),
-        "norm2": init_norm(cfg, device),
-        "mlp": (init_moe(gen, cfg, device) if mlp_kind == "moe"
-                else init_mlp(gen, cfg, device)),
-    }
+    p = {"norm1": init_norm(cfg, device)}
+    if mixer_kind == "mamba":
+        p["mixer"] = init_mamba(gen, cfg, device)
+    elif mixer_kind == "cross":
+        p["mixer"] = init_attention(gen, cfg, device, kind="cross")
+        p["mlp_gate"] = torch.zeros((), dtype=torch_dtype(cfg.param_dtype),
+                                    device=device)
+    elif mixer_kind == "self_cross":
+        p["mixer"] = init_attention(gen, cfg, device, kind="attn")
+        p["cross"] = init_attention(gen, cfg, device, kind="cross")
+        p["norm_cross"] = init_norm(cfg, device)
+    else:
+        p["mixer"] = init_attention(gen, cfg, device, kind=mixer_kind)
+    if cfg.post_block_norm:
+        p["norm1_post"] = init_norm(cfg, device)
+    if mlp_kind != "none":
+        p["norm2"] = init_norm(cfg, device)
+        p["mlp"] = (init_moe(gen, cfg, device) if mlp_kind == "moe"
+                    else init_mlp(gen, cfg, device))
+        if cfg.post_block_norm:
+            p["norm2_post"] = init_norm(cfg, device)
+    return p
+
+
+def _cross_kv(params, cache, cross_src, cfg: ModelConfig):
+    """The cross keys and values: from the cache when no source is given
+    (decode, or a server that passes none), else built from the source and,
+    with a cache, written into it in place."""
+    if cache is not None and cross_src is None:
+        return {"k": cache["xk"], "v": cache["xv"]}
+    ckv = build_cross_kv(params, cross_src, cfg)
+    if cache is not None:
+        if cache["xk"].shape != ckv["k"].shape:
+            raise ValueError(
+                f"a cross source of {ckv['k'].shape[1]} positions does not "
+                f"fit the cache's {cache['xk'].shape[1]} (init_caches' "
+                "n_cross)")
+        cache["xk"].copy_(ckv["k"])
+        cache["xv"].copy_(ckv["v"])
+    return ckv
 
 
 def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
-                cache=None, causal: bool = True,
+                cache=None, cross_src=None, causal: bool = True,
                 moe_capacity: Optional[int] = None,
                 slots=None, slot_fetch=None, slot_live=None,
                 slot_phase: str = "decode"):
-    _check_kinds(cfg, kinds)
     mixer_kind, mlp_kind = kinds
-    h = apply_norm(params["norm1"], x, cfg)
-    if cfg.attn.mla is not None:
-        y, new_cache = mla_attention(params["mixer"], h, cfg,
-                                     positions=positions, cache=cache)
-    else:
-        y, new_cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
-                                     positions=positions, cache=cache,
-                                     causal=causal)
-    x = x + y
-    h = apply_norm(params["norm2"], x, cfg)
     moe_info = None
-    if mlp_kind == "moe":
-        y, moe_info = apply_moe(params["mlp"], h, cfg, capacity=moe_capacity,
-                                slots=slots, slot_fetch=slot_fetch,
-                                slot_live=slot_live, slot_phase=slot_phase)
+    h = apply_norm(params["norm1"], x, cfg)
+    if mixer_kind == "mamba":
+        y, cache = apply_mamba(params["mixer"], h, cfg, cache)
+    elif mixer_kind == "cross":
+        ckv = _cross_kv(params["mixer"], cache, cross_src, cfg)
+        y = cross_attention(params["mixer"], h, cfg, ckv)
+    elif mixer_kind == "self_cross":
+        y, cache = gqa_attention(params["mixer"], h, cfg, kind="attn",
+                                 positions=positions, cache=cache,
+                                 causal=causal)
+        ckv = _cross_kv(params["cross"], cache, cross_src, cfg)
+        x = x + y
+        h = apply_norm(params["norm_cross"], x, cfg)
+        y = cross_attention(params["cross"], h, cfg, ckv)
+    elif cfg.attn.mla is not None:
+        y, cache = mla_attention(params["mixer"], h, cfg,
+                                 positions=positions, cache=cache)
     else:
-        y = apply_mlp(params["mlp"], h, cfg)
-    return x + y, new_cache, moe_info
+        y, cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
+                                 positions=positions, cache=cache,
+                                 causal=causal)
+    if cfg.post_block_norm:
+        y = apply_norm(params["norm1_post"], y, cfg)
+    x = x + y
+
+    if mlp_kind != "none":
+        h = apply_norm(params["norm2"], x, cfg)
+        if mlp_kind == "moe":
+            y, moe_info = apply_moe(params["mlp"], h, cfg,
+                                    capacity=moe_capacity, slots=slots,
+                                    slot_fetch=slot_fetch,
+                                    slot_live=slot_live,
+                                    slot_phase=slot_phase)
+        else:
+            y = apply_mlp(params["mlp"], h, cfg)
+            if mixer_kind == "cross":   # gated FFN on VLM cross layers
+                y = torch.tanh(params["mlp_gate"].float()).to(y.dtype) * y
+        if cfg.post_block_norm:
+            y = apply_norm(params["norm2_post"], y, cfg)
+        x = x + y
+    return x, cache, moe_info
 
 
 def init_block_cache(cfg: ModelConfig, kinds, batch: int, max_len: int,
-                     device, dtype=None):
-    """An empty cache for one attention block: keys and values for GQA,
-    latents and rotary keys for MLA."""
-    _check_kinds(cfg, kinds)
-    a = cfg.attn
+                     device, dtype=None, n_cross: Optional[int] = None):
+    """An empty cache for one block: the SSM state and conv window for
+    Mamba; keys and values for GQA, latents and rotary keys for MLA; the
+    cross keys and values (``n_cross`` source positions: the vision
+    tokens by default, ``max_len`` for an encoder-decoder) for cross
+    layers."""
+    mixer_kind, _ = kinds
     dt = torch_dtype(dtype or cfg.dtype)
+    if mixer_kind == "mamba":
+        return init_mamba_cache(cfg, batch, device, dtype=dt)
+    a = cfg.attn
+    hd = cfg.head_dim()
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
+    if mixer_kind == "cross":
+        T = n_cross or cfg.n_vision_tokens
+        return {"xk": zeros(batch, T, a.n_heads, hd),
+                "xv": zeros(batch, T, a.n_heads, hd)}
     S_c = max_len
-    if kinds[0] == "attn_local" and a.sliding_window:
+    if mixer_kind == "attn_local" and a.sliding_window:
         S_c = min(max_len, a.sliding_window)
     pos = torch.full((batch, S_c), -1, dtype=torch.int32, device=device)
     if a.mla is not None:
         m = a.mla
-        return {"ckv": torch.zeros((batch, S_c, m.kv_lora_rank), dtype=dt,
-                                   device=device),
-                "kpe": torch.zeros((batch, S_c, m.qk_rope_head_dim),
-                                   dtype=dt, device=device),
+        return {"ckv": zeros(batch, S_c, m.kv_lora_rank),
+                "kpe": zeros(batch, S_c, m.qk_rope_head_dim),
                 "pos": pos}
-    hd = cfg.head_dim()
-    return {"k": torch.zeros((batch, S_c, a.n_kv_heads, hd), dtype=dt,
-                             device=device),
-            "v": torch.zeros((batch, S_c, a.n_kv_heads, hd), dtype=dt,
-                             device=device),
-            "pos": pos}
+    c = {"k": zeros(batch, S_c, a.n_kv_heads, hd),
+         "v": zeros(batch, S_c, a.n_kv_heads, hd),
+         "pos": pos}
+    if mixer_kind == "self_cross":
+        T = n_cross or max_len
+        c["xk"] = zeros(batch, T, a.n_heads, hd)
+        c["xv"] = zeros(batch, T, a.n_heads, hd)
+    return c

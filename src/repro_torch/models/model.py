@@ -1,5 +1,7 @@
 """Full-model assembly (port of ``repro/models/model.py``): embedding ->
-prefix blocks -> stacked super-blocks -> final norm -> unembedding.
+prefix blocks -> stacked super-blocks -> final norm -> unembedding, and
+for encoder-decoder archs a bidirectional encoder stack whose output feeds
+the decoder's cross-attention.
 
 Parameters keep the reference's nesting: ``embed``, ``final_norm``,
 ``prefix`` (a tuple of per-layer dicts) and ``scan`` (a tuple over the
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import pinned_empty, resolve_device
+from repro_torch.device import pinned_empty, resolve_device, torch_dtype
 from repro_torch.tree import tree_map, tree_map_with_path
 
 from .blocks import apply_block, init_block, init_block_cache
@@ -57,20 +59,34 @@ def _init_stack(gen, cfg: ModelConfig, pattern, n_super: int, device,
                 host_experts: bool):
     """Stacked params, leaves (n_super, ...), filled one block at a time so
     the peak is one block above the model's own size (with
-    ``host_experts``, one block above the model without its experts)."""
+    ``host_experts``, one block above the model without its experts).
+
+    With ``host_experts`` each routed expert matrix of every MoE position
+    lives in ONE host tensor (n_super * P, E, ...) in the layer order of an
+    expert store (super-block major over the P MoE positions), and
+    position j's stack is its view ``[j::P]``: a store adopts that tensor
+    without a copy (``ExpertStore._host_stack``), also for a hybrid such as
+    Jamba whose period holds several MoE positions."""
+    moe_pos = [p for p, (_, mlp) in enumerate(pattern) if mlp == "moe"]
+    big = {}
+
+    def empty(p, path, a):
+        if host_experts and is_expert_leaf(("scan", p) + path, cfg):
+            if path[-1] not in big:
+                big[path[-1]] = host_empty(
+                    (n_super * len(moe_pos),) + tuple(a.shape), a.dtype,
+                    device)
+            return big[path[-1]][moe_pos.index(p)::len(moe_pos)]
+        return a.new_empty((n_super,) + tuple(a.shape))
+
     out = []
     for p, kinds in enumerate(pattern):
-
-        def empty(path, a):
-            if host_experts and is_expert_leaf(("scan", p) + path, cfg):
-                return host_empty((n_super,) + a.shape, a.dtype, device)
-            return a.new_empty((n_super,) + a.shape)
-
         stacked = None
         for i in range(n_super):
             blk = init_block(gen, cfg, kinds, device)
             if stacked is None:
-                stacked = tree_map_with_path(empty, blk)
+                stacked = tree_map_with_path(
+                    lambda path, a, p=p: empty(p, path, a), blk)
             tree_map(lambda s, a: s[i].copy_(a), stacked, blk)
             del blk
         out.append(stacked)
@@ -87,12 +103,10 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     physical-offload store): each layer's experts are drawn on ``device``,
     as for ``"device"`` (so the weights are the same), and moved to the host
     before the next layer is drawn, so a model whose experts do not fit on
-    the card is never held there whole."""
+    the card is never held there whole.  An encoder-decoder arch gets
+    ``params["encoder"] = {"stack", "final_norm"}``: one stacked
+    ``("attn", "dense")`` position of ``cfg.encoder.n_layers`` layers."""
     dev = resolve_device(device)
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            "encoder-decoder models are ported later (ROADMAP.md queue 1, "
-            "\"Remaining architectures\")")
     host = experts_on_host(experts)
 
     def block(i, kinds):
@@ -106,13 +120,20 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
-    return {
+    params = {
         "embed": init_embedding(gen, cfg, dev),
         "final_norm": init_norm(cfg, dev),
         "prefix": tuple(block(i, kinds)
                         for i, kinds in enumerate(prefix_pat)),
         "scan": _init_stack(gen, cfg, period_pat, n_super, dev, host),
     }
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "stack": _init_stack(gen, cfg, (("attn", "dense"),),
+                                 cfg.encoder.n_layers, dev, False),
+            "final_norm": init_norm(cfg, dev),
+        }
+    return params
 
 
 # --------------------------------------------------------------------------
@@ -120,11 +141,11 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 # --------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
-                dtype=None):
+                dtype=None, n_cross: Optional[int] = None):
     dev = resolve_device(device)
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     mk = lambda kinds: init_block_cache(cfg, kinds, batch, max_len, dev,
-                                        dtype=dtype)
+                                        dtype=dtype, n_cross=n_cross)
     stack = lambda c: tree_map(
         lambda a: a[None].repeat((n_super,) + (1,) * a.dim()), c)
     return {
@@ -143,8 +164,23 @@ def _trim_info(info, trace: bool):
     return {k: info[k] for k in ("workload", "aux_loss", "z_loss", "dropped")}
 
 
+def apply_encoder(params, src, cfg: ModelConfig):
+    """Bidirectional encoder over precomputed frame embeddings (B, T, d):
+    every layer attends non-causally (K3 with ``causal=False``)."""
+    T = src.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=src.device)
+    x = src
+    stack = params["stack"][0]
+    for s in range(cfg.encoder.n_layers):
+        x, _, _ = apply_block(tree_map(lambda a: a[s], stack), x, cfg,
+                              ("attn", "dense"), positions=positions,
+                              causal=False)
+    return apply_norm(params["final_norm"], x, cfg)
+
+
 def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
-                caches=None, moe_capacity: Optional[int] = None,
+                caches=None, cross_src=None,
+                moe_capacity: Optional[int] = None,
                 trace: bool = False, last_logit_only: bool = False,
                 logit_index: Optional[int] = None, expert_slots=None,
                 slot_fetch=None, slot_live=None, slot_phase: str = "decode"):
@@ -154,6 +190,11 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     positions whose leaves are stacked (n_super, ...), as in the reference.
 
     ``positions`` is (S,) shared by the batch or (B, S) per slot.
+    ``cross_src`` (B, T, d) is the source of the cross-attention layers:
+    vision embeddings (VLM) or audio frames, which an encoder-decoder arch
+    first encodes; without it cross layers read their caches.  It is cast
+    to ``cfg.dtype`` (the reference lets a float32 source promote the
+    bfloat16 products to float32; the kernels take one dtype).
     ``logit_index`` unembeds only that position: the admission prefill of a
     right-padded prompt samples from position ``length - 1``.
 
@@ -166,10 +207,15 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    if cross_src is not None:
+        cross_src = torch.as_tensor(cross_src, device=tokens.device).to(
+            torch_dtype(cfg.dtype))
+        if cfg.encoder is not None:
+            cross_src = apply_encoder(params["encoder"], cross_src, cfg)
     x = embed(params["embed"], tokens, cfg)
 
-    slot_kw = dict(slot_fetch=slot_fetch, slot_live=slot_live,
-                   slot_phase=slot_phase)
+    slot_kw = dict(cross_src=cross_src, slot_fetch=slot_fetch,
+                   slot_live=slot_live, slot_phase=slot_phase)
     infos = []
     for i, kinds in enumerate(prefix_pat):
         c = caches["prefix"][i] if caches is not None else None

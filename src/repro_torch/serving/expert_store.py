@@ -152,6 +152,28 @@ def moe_layer_layout(cfg: ModelConfig):
     return prefix_moe, scan_moe, n_super
 
 
+def _interleaved_base(stacks):
+    """The (n_super * P, ...) host tensor whose views ``[j::P]`` are the P
+    ``stacks`` (each (n_super, ...)), or None when they are not laid out
+    so (on the device, copies, or another order)."""
+    first = stacks[0]
+    if first.device.type != "cpu" or not first[0].is_contiguous():
+        return None
+    P, row = len(stacks), first[0].numel()
+    shape = (first.shape[0] * P,) + tuple(first.shape[1:])
+    for j, t in enumerate(stacks):
+        if (t.device.type != "cpu" or tuple(t.shape) != tuple(first.shape)
+                or t.dtype != first.dtype
+                or t.untyped_storage().data_ptr()
+                != first.untyped_storage().data_ptr()
+                or t.storage_offset() != first.storage_offset() + j * row
+                or (t.shape[0] > 1 and t.stride(0) != P * row)
+                or not t[0].is_contiguous()):
+            return None
+    return first.as_strided(shape, (row,) + first[0].stride(),
+                            first.storage_offset())
+
+
 def lower_slot_plan_np(cur, target, max_moves: int):
     """Lower a per-layer target resident set to a bounded slot plan.
 
@@ -330,21 +352,19 @@ class ExpertStore:
 
     def _host_stack(self, params, name):
         """(L, E, ...) host tensor of one expert matrix, pinned when the pool
-        lives on a card.  A scan stack that already is ``(L, E, ...)`` on the
-        host (one MoE position, no MoE prefix) is adopted as it is."""
+        lives on a card.  Scan stacks that already lie on the host in that
+        layout (no MoE prefix; one contiguous stack, or the P MoE positions'
+        views ``[j::P]`` of one tensor, as ``init_model(experts="host")``
+        draws a hybrid) are adopted without a copy."""
         pin = self.device.type == "cuda"
         chunks = [params["prefix"][i]["mlp"][name]
                   for i in self._prefix_moe]
         per_pos = [params["scan"][p]["mlp"][name] for p in self._scan_moe]
-        if len(per_pos) == 1 and not chunks:
-            src = per_pos[0]                       # (n_super, E, ...)
-            if src.device.type == "cpu" and src.is_contiguous() and (
-                    not pin or src.is_pinned()):
-                return src
-            chunks = list(src)
-        else:
-            for s in range(self._n_super):
-                chunks += [p[s] for p in per_pos]
+        whole = None if chunks else _interleaved_base(per_pos)
+        if whole is not None and (not pin or whole.is_pinned()):
+            return whole
+        for s in range(self._n_super):
+            chunks += [p[s] for p in per_pos]
         shape = (len(chunks),) + tuple(chunks[0].shape)
         out = (pinned_empty(shape, chunks[0].dtype) if pin
                else torch.empty(shape, dtype=chunks[0].dtype))

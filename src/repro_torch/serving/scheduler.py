@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import TelemetryAggregator
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, layer_pattern
 from repro_torch.models.model import init_caches
 from repro_torch.serving.spec import (ResolvedServe, ServeSpec, build_store,
                                      warn_legacy)
@@ -234,6 +234,12 @@ class ContinuousBatchServer(_Server):
 
     def __init__(self, params, cfg: Optional[ModelConfig] = None, **kw):
         super().__init__(params, cfg, **kw)
+        if any(mixer == "mamba" for mixer, _ in layer_pattern(self.cfg)):
+            # attention masks hide right-pad slots (pos = -1); a recurrent
+            # SSM state has no such mask, so pad tokens would corrupt it
+            raise ValueError(
+                "continuous batching requires attention caches; serve "
+                "SSM/hybrid archs with the 'wave' preset")
         self._prefill = self._resolved.admit_prefill()
         self._admit = make_admit_step(self.cfg)
         a = self.cfg.attn
@@ -256,7 +262,8 @@ class ContinuousBatchServer(_Server):
         toks[0, :L] = req.prompt                     # RIGHT-pad (see steps)
         fresh = self._fresh_caches
         for c in list(fresh["prefix"]) + list(fresh["scan"]):
-            c["pos"].fill_(-1)
+            if "pos" in c:              # cross caches have no positions
+                c["pos"].fill_(-1)
         off = None
         if self.store is not None:
             # overlap may hold a staged plan: commit it so the admission

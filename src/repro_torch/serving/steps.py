@@ -115,9 +115,12 @@ def _slot_kw(offload, slot_fetch, off, **kw):
 def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
                       offload=None, fallback=None):
     """Wave prefill: returns prefill(params, tokens (B, S), caches,
-    off=None) -> (next_token (B, 1), caches), the caches written in place.
-    The prompts arrive LEFT-padded to one length S and every row runs at
-    positions 0..S-1, as in the reference (pad tokens are attended to).
+    off=None, cross_src=None) -> (next_token (B, 1), caches), the caches
+    written in place.  The prompts arrive LEFT-padded to one length S and
+    every row runs at positions 0..S-1, as in the reference (pad tokens
+    are attended to, and feed a Mamba layer's state).  ``cross_src`` is
+    the cross-attention source (the servers pass none, as the reference's
+    do: cross layers then read their empty caches).
 
     ``offload`` (an ``ExpertStore``) runs the sweep through the slot pool
     (call with ``off=state["offload"]``; params may be stripped of expert
@@ -125,12 +128,13 @@ def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
     the store's miss tier for this step."""
     slot_fetch = _offload_consts(offload, fallback)
 
-    def prefill(params, tokens, caches, off=None):
+    def prefill(params, tokens, caches, off=None, cross_src=None):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         logits, caches, _ = apply_model(
             params, tokens, cfg, positions=positions, caches=caches,
-            moe_capacity=moe_capacity, last_logit_only=True,
+            cross_src=cross_src, moe_capacity=moe_capacity,
+            last_logit_only=True,
             **_slot_kw(offload, slot_fetch, off, slot_phase="prefill"))
         return logits[:, -1:].argmax(-1).to(torch.int32), caches
 
@@ -351,11 +355,13 @@ class ResilientDecode:
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                      dali_cfg: Optional[DaliConfig] = None, dtype=None,
-                     seed: int = 0, per_slot: bool = False, policy=None,
-                     device="cuda", offload=None):
+                     n_cross: Optional[int] = None, seed: int = 0,
+                     per_slot: bool = False, policy=None, device="cuda",
+                     offload=None):
     """The serve state of a wave (``per_slot=False``: one shared position)
     or of an empty slot table (``per_slot=True``); ``seed`` seeds the
-    policy's initial state and the sampling generator.  With ``offload``
+    policy's initial state and the sampling generator; ``n_cross`` sizes
+    the cross-attention caches (``init_caches``).  With ``offload``
     (an ``ExpertStore``) ``state["offload"]`` holds its slot pool, seeded
     from the policy's initial resident set."""
     dev = resolve_device(device)
@@ -365,7 +371,8 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
         "tokens": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
         "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                            device=dev),
-        "caches": init_caches(cfg, batch, max_len, device=dev, dtype=dtype),
+        "caches": init_caches(cfg, batch, max_len, device=dev, dtype=dtype,
+                              n_cross=n_cross),
         "rng": rng,
     }
     if per_slot:
@@ -389,7 +396,8 @@ def default_dali_config(cfg: ModelConfig, cache_ratio: float = 0.25,
                         prefetch_size: int = 1, w_size: int = 4,
                         u_size: int = 1) -> Optional[DaliConfig]:
     """Paper defaults: cache 25-50% of experts/layer; (w,u)=(4,1) Mixtral-
-    like, (4,8) for many-expert models (§6.4)."""
+    like, (4,8) for many-expert models (§6.4).  None for an arch without
+    MoE layers (dense, SSM); a hybrid counts only its MoE layers."""
     if cfg.moe is None:
         return None
     from repro_torch.core.cost_model import LOCAL_PC, CostModel

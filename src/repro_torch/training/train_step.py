@@ -2,7 +2,8 @@
 
 Loss = token cross-entropy (float32 logits) + logit z-loss + the MoE
 auxiliary load-balance loss + the router z-loss, collected from every MoE
-block.  ``make_train_step`` returns ``train_step(params, opt_state, batch)
+block.  A batch may carry ``cross_src`` (B, T, d), the source of a VLM's or
+an encoder-decoder's cross-attention layers.  ``make_train_step`` returns ``train_step(params, opt_state, batch)
 -> (params', opt_state', metrics)``: gradients of every param leaf by
 ``torch.autograd.grad`` (on the card through the kernels' autograd
 Functions, whose backward recomputes through the plain versions), then one
@@ -18,11 +19,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import apply_model, collect_moe_scalars
 from repro_torch.training.optimizer import OptConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
-
-CROSS_SRC = ("cross-attention sources (VLM / audio) are ported with their "
-             "architectures (ROADMAP.md queue 1, \"Remaining "
-             "architectures\")")
-
 
 def cross_entropy(logits, labels, z_weight: float = 1e-4):
     """logits (B, S, V) float32, labels (B, S) int (-1 = masked) ->
@@ -40,9 +36,8 @@ def cross_entropy(logits, labels, z_weight: float = 1e-4):
 
 def make_loss_fn(cfg: ModelConfig, moe_capacity: Optional[int] = None):
     def loss_fn(params, batch):
-        if batch.get("cross_src") is not None:
-            raise NotImplementedError(CROSS_SRC)
         logits, _, infos = apply_model(params, batch["tokens"], cfg,
+                                       cross_src=batch.get("cross_src"),
                                        moe_capacity=moe_capacity)
         loss, ce = cross_entropy(logits, batch["labels"])
         moe = collect_moe_scalars(infos)

@@ -842,3 +842,161 @@ def test_chunked_apply_moe_on_the_card_matches_plain(cuda, monkeypatch):
     for key in ("topk_idx", "workload", "dropped"):
         assert torch.equal(info[key], ip[key]), key
     assert info["topk_idx"].shape == (96, cfg.moe.top_k)
+
+
+# --------------------------------------------------------------------------
+# the remaining architectures on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,cap", [
+    (1, 64, 1601, 32, 32, 128, False, 0, 0.0),    # vision cross, Sq != Sk
+    (1, 1024, 1024, 16, 16, 64, False, 0, 0.0),   # Seamless's encoder
+    (1, 5000, 5000, 16, 8, 256, True, 4096, 50.0),  # Gemma-2 local layer
+    (1, 256, 256, 128, 8, 128, True, 0, 0.0),     # Llama-3-405B, G = 16
+    (2, 128, 128, 64, 8, 128, True, 0, 0.0),      # Jamba's attention
+    (1, 256, 256, 40, 8, 128, True, 0, 0.0),      # Llama-4: G = 5
+])
+def test_flash_attention_at_the_new_archs_shapes_matches_plain(
+        cuda, B, Sq, Sk, Hq, Hkv, D, causal, window, cap):
+    """K3 at the shapes the new architectures give it, row by row against
+    the plain version (blockwise from 4096 keys); Llama-4's query groups
+    of 5, which do not divide the kernel's 64-row tile, attend over K/V
+    heads repeated to one per query head."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(Sq)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = kernels.LAUNCHES["flash_attention"]
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert _row_rel_err(o, flash_attention_plain(q, k, v, **kw)) < BF16_TOL
+
+
+def test_expert_ffn_over_jambas_stack_past_two_to_the_31(cuda):
+    """Jamba's expert widths (E = 16, d = 8192, f = 24576): each weight
+    stack holds 3.2e9 elements, past 2^31, so the last experts sit at
+    offsets that only 64-bit strides reach.  K2 ragged over the 256-token
+    bucket and K4 grouped over a decode step whose ids reach expert 15."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(20)
+    E, d, f, C = 16, 8192, 24576, 40
+    w = lambda *s: (torch.randn(s, generator=g, device=cuda)
+                    / s[1] ** 0.5).bfloat16()
+    wg, wu, wd = w(E, d, f), w(E, d, f), w(E, f, d)
+    assert wg.numel() > 2**31
+    xe = torch.randn((E, C, d), generator=g, device=cuda).bfloat16()
+    cnt = torch.randint(1, C + 1, (E,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    y = expert_ffn(xe, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    assert _rel_err(y, expert_ffn_plain(xe, wg, wu, wd, counts=cnt)) \
+        < BF16_TOL
+    eids = torch.tensor([15, 3, 12, 15], dtype=torch.int32, device=cuda)
+    ones = torch.ones((4,), dtype=torch.int32, device=cuda)
+    xs = xe[:4, :1].contiguous()
+    y = expert_ffn(xs, wg, wu, wd, counts=ones, expert_ids=eids)
+    torch.cuda.synchronize()
+    r = expert_ffn_plain(xs, wg, wu, wd, counts=ones, expert_ids=eids)
+    assert _rel_err(y, r) < BF16_TOL
+    # expert 15 alone: the rows that only the far end of the stack feeds
+    assert _rel_err(y[0], r[0]) < BF16_TOL
+
+
+@pytest.mark.parametrize("T", [2, 256])
+def test_gating_sigmoid_top1_at_llama4s_router(cuda, T):
+    """Llama-4's router (E = 128, top-1, sigmoid, no renormalisation): the
+    warp variant against the plain version."""
+    rng = np.random.default_rng(T)
+    lg = torch.tensor(rng.standard_normal((T, 128)) * 2,
+                      dtype=torch.float32, device=cuda)
+    assert plan(128, 1)[0] == "warp"
+    _check_gating(lg, 1, "sigmoid", False)
+
+
+def test_apply_mamba_on_the_card_matches_the_cpu(cuda):
+    """Mamba-2's block (bfloat16 smoke widths) through a prefill then two
+    decode steps on the card against the same on the CPU: outputs and every
+    cache leaf within 3e-2."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.mamba import (apply_mamba, init_mamba,
+                                          init_mamba_cache)
+    cfg = make_smoke(get_config("mamba2-780m")).replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    cpu = init_mamba(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = {k: t.to(cuda) for k, t in cpu.items()}
+    x = torch.tensor(np.random.default_rng(1).standard_normal(
+        (2, 21, cfg.d_model)) * 0.5, dtype=torch.bfloat16)
+    cc = init_mamba_cache(cfg, 2, "cpu")
+    cg = init_mamba_cache(cfg, 2, cuda)
+    for lo, hi in ((0, 19), (19, 20), (20, 21)):
+        yc, cc = apply_mamba(cpu, x[:, lo:hi], cfg, cc)
+        yg, cg = apply_mamba(gpu, x[:, lo:hi].to(cuda), cfg, cg)
+        assert _rel_err(yg.cpu(), yc) < BF16_TOL, (lo, hi)
+        for k in cc:
+            assert _rel_err(cg[k].cpu(), cc[k]) < BF16_TOL, k
+
+
+def test_rolling_cache_write_on_the_card_wraps_at_pos_mod_window(cuda):
+    """The ring write on the card: a prefill of 37 positions into a
+    16-slot rolling cache keeps each of the last 16 at slot pos % 16, as on
+    the CPU; then Gemma-2's bfloat16 smoke model decodes after a 37-token
+    prompt within 3e-2 of its recompute on the card."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.attention import _update_cache
+    from repro_torch.models.model import apply_model, init_caches, init_model
+    caches = {dev: {"k": torch.zeros((1, 16, 1, 1), device=dev),
+                    "pos": torch.full((1, 16), -1, dtype=torch.int32,
+                                      device=dev)} for dev in ("cpu", cuda)}
+    pos = torch.arange(37, dtype=torch.int32)
+    for dev, c in caches.items():
+        _update_cache(c, pos.to(dev),
+                      k=pos.float().to(dev)[None, :, None, None])
+    assert torch.equal(caches[cuda]["pos"].cpu(), caches["cpu"]["pos"])
+    assert torch.equal(caches[cuda]["k"].cpu(), caches["cpu"]["k"])
+    assert torch.equal(caches["cpu"]["pos"][0] % 16, torch.arange(16))
+    cfg = make_smoke(get_config("gemma2-9b")).replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    params = init_model(cfg, seed=0, device=cuda)
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 37)), dtype=torch.int32, device=cuda)
+    c = init_caches(cfg, 1, 48, device=cuda)
+    lg, c, _ = apply_model(params, toks, cfg, positions=torch.arange(
+        37, dtype=torch.int32, device=cuda), caches=c, last_logit_only=True)
+    nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+    dec, _, _ = apply_model(params, nxt, cfg, positions=torch.tensor(
+        [37], dtype=torch.int32, device=cuda), caches=c)
+    full, _, _ = apply_model(params, torch.cat([toks, nxt], 1), cfg,
+                             last_logit_only=True)
+    assert _rel_err(dec[:, -1], full[:, -1]) < BF16_TOL
+
+
+def test_jamba_offloaded_wave_on_the_card_equals_full_resident(cuda):
+    """Jamba's bfloat16 smoke model through the wave server on the card:
+    the pipelined slot pool (four MoE layers between Mamba layers, experts
+    drawn into the host store) gives the full-resident tokens."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.model import init_model
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    cfg = make_smoke(get_config("jamba-1.5-large-398b")).replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (9, 20, 14, 5)]
+    outs = {}
+    for mode, experts in (("modeled", "device"), ("pipelined", "host")):
+        params = init_model(cfg, seed=0, device=cuda, experts=experts)
+        srv = ServeSpec(cfg=cfg, server="wave", policy="dali",
+                        batch_size=2, max_len=48, eos_id=-1,
+                        offload=OffloadSpec(mode=mode)).resolve(
+                            params).server()
+        for i, p in enumerate(prompts):
+            srv.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        kernels.reset_launch_counts()
+        outs[mode] = {r.rid: r.output for r in srv.run()}
+        assert kernels.LAUNCHES["gating"] > 0
+        assert kernels.LAUNCHES["flash_attention"] > 0
+    assert outs["pipelined"] == outs["modeled"]

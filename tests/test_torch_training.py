@@ -329,9 +329,15 @@ def test_training_on_the_cpu_launches_no_kernel(model):
 
 
 def test_train_loop_refuses_cross_attention_sources(model):
+    """``train_loop`` trains a VLM (cross-attention layers) against the
+    reference's constant cross source, and still refuses a card it does
+    not have."""
     _, tc, _ = model
-    with pytest.raises(NotImplementedError, match="Remaining architectures"):
-        ttrain.train_loop(tc.replace(family="vlm"), 1, 1, 8, device="cpu")
+    vlm = tconfigs.make_smoke(tconfigs.get_config("llama_3_2_vision_11b"))
+    params, _, hist = ttrain.train_loop(vlm.replace(n_layers=5), 2, 2, 8,
+                                        device="cpu")
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    assert float(params["scan"][4]["mixer"]["gate"].abs().max()) > 0  # cross
     with pytest.raises(RuntimeError, match="cuda"):
         ttrain.train_loop(tc, 1, 1, 8)
 
