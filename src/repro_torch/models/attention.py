@@ -171,10 +171,23 @@ def gqa_attention(params, x, cfg: ModelConfig, *, kind: str, positions,
     # kernel's suffix-aligned causal mask is the position mask
     if cache is not None:
         cache = _update_cache(cache, positions, k=k, v=v)
-    y = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal, window=window, softcap=a.attn_softcap,
-                        scale=scale)
+    y = _k3(q, k, v, cfg, causal=causal, window=window,
+            softcap=a.attn_softcap, scale=scale)
     return y.reshape(B, S, a.n_heads * hd) @ params["wo"], cache
+
+
+def _k3(q, k, v, cfg: ModelConfig, **kw):
+    """K3 over q / k / v -> (B, Sq, Hq, D) in q's dtype.  A float32 cross
+    source promotes the cross keys and values, and the encoder, to float32
+    (as the reference's source does); the kernel takes ``cfg.dtype``, so on
+    the card such operands are rounded at its boundary.  On the CPU the
+    plain version attends in float32 whatever their dtype."""
+    dt = torch_dtype(cfg.dtype)
+    if q.is_cuda and any(t.dtype != dt for t in (q, k, v)):
+        return flash_attention(*(t.to(dt).contiguous() for t in (q, k, v)),
+                               **kw).to(q.dtype)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           **kw)
 
 
 def mla_attention(params, x, cfg: ModelConfig, *, positions, cache=None):
@@ -263,12 +276,16 @@ def _mla_decompress(params, ckv, kpe, H, nope, rp, vd):
 
 def build_cross_kv(params, src, cfg: ModelConfig):
     """Keys and values (B, T, H, D) of the encoder / vision embeddings
-    ``src`` (B, T, d), every query head its own."""
+    ``src`` (B, T, d), every query head its own, in the dtype that ``src``
+    and the weights promote to (float32 for the reference's float32
+    source over bfloat16 weights)."""
     a = cfg.attn
     hd = cfg.head_dim()
     B, T, _ = src.shape
-    k = (src @ params["wk"]).reshape(B, T, a.n_heads, hd)
-    v = (src @ params["wv"]).reshape(B, T, a.n_heads, hd)
+    dt = torch.promote_types(src.dtype, params["wk"].dtype)
+    src = src.to(dt)
+    k = (src @ params["wk"].to(dt)).reshape(B, T, a.n_heads, hd)
+    v = (src @ params["wv"].to(dt)).reshape(B, T, a.n_heads, hd)
     if "k_norm" in params:
         k = rms_norm_vec(params["k_norm"], k)
     return {"k": k, "v": v}
@@ -287,8 +304,7 @@ def cross_attention(params, x, cfg: ModelConfig, cross_kv):
     k, v = cross_kv["k"], cross_kv["v"]
     scale = 1.0 / math.sqrt(hd)
     if S > 1:
-        y = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=False, scale=scale)
+        y = _k3(q, k, v, cfg, causal=False, scale=scale)
         y = y.reshape(B, S, a.n_heads * hd)
     else:
         T = k.shape[1]

@@ -166,16 +166,20 @@ def _trim_info(info, trace: bool):
 
 def apply_encoder(params, src, cfg: ModelConfig):
     """Bidirectional encoder over precomputed frame embeddings (B, T, d):
-    every layer attends non-causally (K3 with ``causal=False``)."""
+    every layer attends non-causally (K3 with ``causal=False``).  A source
+    wider than the weights (the reference's float32 frames) runs the
+    encoder in its dtype, each weight promoted as JAX promotes it."""
     T = src.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=src.device)
+    up = lambda a: (a.to(torch.promote_types(a.dtype, src.dtype))
+                    if a.is_floating_point() else a)
     x = src
     stack = params["stack"][0]
     for s in range(cfg.encoder.n_layers):
-        x, _, _ = apply_block(tree_map(lambda a: a[s], stack), x, cfg,
+        x, _, _ = apply_block(tree_map(lambda a: up(a[s]), stack), x, cfg,
                               ("attn", "dense"), positions=positions,
                               causal=False)
-    return apply_norm(params["final_norm"], x, cfg)
+    return apply_norm(tree_map(up, params["final_norm"]), x, cfg)
 
 
 def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
@@ -192,9 +196,11 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     ``positions`` is (S,) shared by the batch or (B, S) per slot.
     ``cross_src`` (B, T, d) is the source of the cross-attention layers:
     vision embeddings (VLM) or audio frames, which an encoder-decoder arch
-    first encodes; without it cross layers read their caches.  It is cast
-    to ``cfg.dtype`` (the reference lets a float32 source promote the
-    bfloat16 products to float32; the kernels take one dtype).
+    first encodes; without it cross layers read their caches.  It keeps
+    its dtype where that is wider than ``cfg.dtype``: as in the reference,
+    a float32 source promotes the encoder and the cross keys and values to
+    float32 (a cache keeps them in its own dtype), and K3 takes them in
+    ``cfg.dtype`` at its boundary.
     ``logit_index`` unembeds only that position: the admission prefill of a
     right-padded prompt samples from position ``length - 1``.
 
@@ -208,8 +214,11 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     if cross_src is not None:
-        cross_src = torch.as_tensor(cross_src, device=tokens.device).to(
-            torch_dtype(cfg.dtype))
+        cross_src = torch.as_tensor(cross_src, device=tokens.device)
+        src_dt = (torch.float32 if cross_src.dtype == torch.float64
+                  else cross_src.dtype)     # JAX computes without x64
+        cross_src = cross_src.to(torch.promote_types(
+            src_dt, torch_dtype(cfg.dtype)))
         if cfg.encoder is not None:
             cross_src = apply_encoder(params["encoder"], cross_src, cfg)
     x = embed(params["embed"], tokens, cfg)

@@ -6,7 +6,8 @@
   lives on a card), so every copy to the card is a DMA that does not block
   the host.  Params whose expert stacks already sit on the host (``init_model
   (experts="host")``, ``bridge.to_torch(experts="host")``) are adopted without
-  a copy where their layout is already ``(L, E, ...)``.
+  a copy where their layout is already ``(L, E, ...)``; for a pool on a card
+  any other host layout raises rather than being copied a second time.
 * **Device slot pool** — ``(L, n_slots, ...)`` per matrix plus the slot table
   ``cur (L, n_slots)`` (expert id per slot, -1 free).  The store keeps a host
   mirror of the table (``_cur``, planned against) and a host copy of the table
@@ -355,7 +356,10 @@ class ExpertStore:
         lives on a card.  Scan stacks that already lie on the host in that
         layout (no MoE prefix; one contiguous stack, or the P MoE positions'
         views ``[j::P]`` of one tensor, as ``init_model(experts="host")``
-        draws a hybrid) are adopted without a copy."""
+        draws a hybrid) are adopted without a copy.  For a pool on a card,
+        stacks that already lie on the host in any other way raise: the
+        store would hold a second host copy of them (Jamba's 77.3 GB do not
+        fit twice on a 96 GiB host)."""
         pin = self.device.type == "cuda"
         chunks = [params["prefix"][i]["mlp"][name]
                   for i in self._prefix_moe]
@@ -363,6 +367,13 @@ class ExpertStore:
         whole = None if chunks else _interleaved_base(per_pos)
         if whole is not None and (not pin or whole.is_pinned()):
             return whole
+        if pin and any(t.device.type == "cpu" for t in chunks + per_pos):
+            raise ValueError(
+                f"the routed {name!r} stacks lie in host memory, but not as "
+                "one pinned (L, E, ...) tensor whose views [j::P] are the P "
+                "MoE positions' stacks: the store would need a second host "
+                "copy of them; draw the params with init_model(experts="
+                "'host') or keep the experts on the card")
         for s in range(self._n_super):
             chunks += [p[s] for p in per_pos]
         shape = (len(chunks),) + tuple(chunks[0].shape)

@@ -17,18 +17,22 @@ reference's parameters carried over by ``repro_torch.bridge``):
   length the window does not divide, the port's decode equals its own
   full recompute within 3e-5.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
 import repro.models.attention as jattn
 import repro.models.blocks as jblocks
 import repro.models.model as jmodel
 import repro.serving.scheduler as jsched
 import repro.serving.spec as jspec
 import repro.serving.steps as jsteps
+import repro_torch.configs as tconfigs
 import repro_torch.models.attention as tattn
 import repro_torch.models.blocks as tblocks
 import repro_torch.models.model as tmodel
@@ -38,7 +42,8 @@ import repro_torch.serving.steps as tsteps
 from repro_torch import bridge, kernels
 from repro_torch.models.config import layer_pattern, scan_pattern
 from repro_torch.tree import tree_map
-from test_torch_archs import _close, _one_thread, carried  # noqa: F401
+from test_torch_archs import (_close, _one_thread, _rel,  # noqa: F401
+                              _tokens, carried, cross_src, open_gates)
 
 NO_EOS = 10_000_000
 PROMPTS = [(5, 6), (12, 4), (20, 8), (9, 5)]
@@ -195,6 +200,21 @@ def test_offloaded_serve_equals_full_resident(arch, server):
         assert torch.equal(srv.store.host["gate"][l], per_pos[j][s])
 
 
+def test_store_refuses_a_second_host_copy_for_a_card_pool():
+    """Host-resident expert stacks that the store cannot adopt (here
+    Jamba's four MoE positions as separate host tensors, as the bridge
+    places them) raise for a pool on a card instead of being copied."""
+    from repro_torch.serving.expert_store import ExpertStore
+    _, tc, _, tp = carried("jamba_1_5_large_398b")
+    store = ExpertStore.__new__(ExpertStore)
+    store.device = torch.device("cuda")
+    store._prefix_moe, store._scan_moe = [], [
+        p for p, (_, m) in enumerate(scan_pattern(tc)[1]) if m == "moe"]
+    store._n_super = scan_pattern(tc)[2]
+    with pytest.raises(ValueError, match="second host copy"):
+        store._host_stack(tp, "gate")
+
+
 # --------------------------------------------------------------------------
 # cross-attention pieces
 # --------------------------------------------------------------------------
@@ -269,6 +289,48 @@ def test_apply_encoder_matches_reference():
     ej = jmodel.apply_encoder(jp["encoder"], jnp.asarray(src), jc)
     et = tmodel.apply_encoder(tp["encoder"], torch.from_numpy(src), tc)
     _close(et, ej, "encoder")
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_11b",
+                                  "seamless_m4t_large_v2"])
+def test_float32_source_promotes_the_cross_path_as_the_reference(arch):
+    """A bfloat16 model fed a float32 source (the launchers' constant
+    source is float32): the encoder's output and the cross keys and
+    values are float32 in both packages and equal within 3e-5 (float32
+    math over the same bfloat16 weights); the logits agree within the
+    bfloat16 tolerance 3e-2."""
+    bf16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+    jc = dataclasses.replace(
+        jconfigs.make_smoke(jconfigs.get_config(arch)), **bf16)
+    tc = dataclasses.replace(
+        tconfigs.make_smoke(tconfigs.get_config(arch)), **bf16)
+    jp = open_gates(jmodel.init_model(jax.random.PRNGKey(0), jc))
+    tp = bridge.to_torch(jp, "cpu")
+    jp = jax.tree.map(jnp.asarray, jp)
+    src = cross_src(jc)
+    sj, st = jnp.asarray(src), torch.from_numpy(src)
+    if jc.encoder is not None:
+        sj = jmodel.apply_encoder(jp["encoder"], sj, jc)
+        st = tmodel.apply_encoder(tp["encoder"], st, tc)
+        assert sj.dtype == jnp.float32 and st.dtype == torch.float32
+        _close(st, sj, "encoder")
+    p = next(i for i, (m, _) in enumerate(scan_pattern(tc)[1])
+             if m in ("cross", "self_cross"))
+    key = "mixer" if scan_pattern(tc)[1][p][0] == "cross" else "cross"
+    kj = jattn.build_cross_kv(jax.tree.map(lambda a: a[0], jp["scan"][p])
+                              [key], sj, jc)
+    kt = tattn.build_cross_kv(tree_map(lambda a: a[0], tp["scan"][p])[key],
+                              st, tc)
+    for k in ("k", "v"):
+        assert kj[k].dtype == jnp.float32 and kt[k].dtype == torch.float32
+        _close(kt[k], kj[k], k)
+    toks = _tokens(jc, 12)
+    lj, _, _ = jmodel.apply_model(jp, jnp.asarray(toks), jc,
+                                  cross_src=jnp.asarray(src))
+    lt, _, _ = tmodel.apply_model(tp, torch.from_numpy(toks), tc,
+                                  cross_src=torch.from_numpy(src))
+    err = _rel(lt, np.asarray(lj, np.float32))
+    assert err < 3e-2, f"logits {err:.3e}"
 
 
 # --------------------------------------------------------------------------
