@@ -151,7 +151,21 @@ outside a checkout.  Phases (any failure exits non-zero):
    42, within 1.5x of a 4000-token prompt's decode-vs-recompute gap
    (bfloat16 alone puts the two ~4.5e-2 apart there); Llama-3.2-Vision (1601 vision tokens) and Seamless (1024
    frames through its encoder) decode after a cross source within 3e-2
-   of the recompute, K3 non-causal launched.
+   of the recompute, K3 non-causal launched;
+15. audit  — the serving-path audit on the card (run right after phase 5,
+   on its 8-layer Mixtral-8x7B; (e) after phase 9): (a) ten full-resident
+   batch-8 decode steps under ``torch.cuda.set_sync_debug_mode("error")``
+   must not raise (the CPU census's zero host reads); (b) ten pipelined
+   steps at cache ratio 0.25 under "warn": each step's synchronising calls
+   against the host seams it entered (one ``read_misses`` per MoE layer
+   must be among them); (c) one full-resident decode step captured in a
+   ``torch.cuda.CUDAGraph`` on a side stream (printed, not gated); (d) the
+   meta dry run's peak bytes of (a)'s decode against
+   ``max_memory_allocated`` (within 2x); (e) phase 9's training step with
+   ``remat=True`` and without, 3 steps each: ms, peak memory and the
+   largest gradient difference (within 3e-2); K1, K2 ragged and grouped
+   and K3 launched in (a)-(d) and K1, K2 ragged and K3 in (e) (counts
+   zeroed just before, read just after).
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -3397,6 +3411,221 @@ def cross_check(torch, cfg, params, corpus, name):
     return ok
 
 
+# --------------------------------------------------------------------------
+# phase 15: the serving-path audit on the card, the dry run, remat
+# --------------------------------------------------------------------------
+
+AUDIT_STEPS = 10             # (a) and (b): decode steps under the sync check
+AUDIT_PROMPT = 32            # (a) and (b): the wave's prompt length
+
+
+def audit_prefill(torch, rs, cfg, rng, corpus):
+    """A batch-8 wave state prefilled with ``AUDIT_PROMPT``-token prompts
+    (through the slot pool for a physical store) and the decode of the
+    healthy rung, warmed up by one step outside any check."""
+    import numpy as np
+    state = rs.init_state()
+    prompts = torch.as_tensor(np.stack([corpus.sample(rng, AUDIT_PROMPT)
+                                        for _ in range(8)]), device="cuda")
+    nxt, _ = rs.prefill_step()(rs.params, prompts, state["caches"],
+                               off=state.get("offload"))
+    state["tokens"] = nxt
+    state["pos"] = torch.full((), AUDIT_PROMPT, dtype=torch.int32,
+                              device="cuda")
+    decode = rs.resilient_decode().variant("healthy")
+    state = decode(rs.params, state, None)[0]
+    torch.cuda.synchronize()
+    return state, decode
+
+
+def audit_phase(torch, kernels, name, ctx):
+    """(a) ten full-resident batch-8 decode steps of phase 5's 8-layer
+    model under ``torch.cuda.set_sync_debug_mode("error")``; (b) ten
+    pipelined steps (cache ratio 0.25) under "warn", the synchronising
+    calls of each step against the host seams it entered (the CPU census's
+    prediction: one ``read_misses`` per MoE layer, and one miss-row upload
+    per layer that fetched); (c) one full-resident decode step captured in
+    a ``torch.cuda.CUDAGraph`` on a side stream (a check, not a gate); (d)
+    the meta dry run's peak bytes for (a)'s serve against
+    ``max_memory_allocated``.  Returns (ok, launch counts)."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.launch.shapes import meta_serve_state
+    from repro_torch.models.model import meta_model
+    from repro_torch.models.moe import CALLBACK_SEAMS
+    from repro_torch.serving.spec import OffloadSpec, ServeSpec
+    from repro_torch.serving.steps import default_dali_config
+
+    t_phase = time.perf_counter()
+    params, cfg, res_np = ctx["params"], ctx["cfg"], ctx["res_vecs"]
+    res = torch.as_tensor(res_np, dtype=torch.float32, device="cuda")
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(15)
+    dali_cfg = default_dali_config(cfg, cache_ratio=0.5)
+    kernels.reset_launch_counts()          # the phase's path starts here
+
+    # (a) full resident: no synchronising call in ten decode steps
+    rs = ServeSpec(cfg=cfg, policy="dali", dali_cfg=dali_cfg, batch_size=8,
+                   max_len=MAX_LEN, offload=OffloadSpec(mode="modeled")
+                   ).resolve(params)
+    state, decode = audit_prefill(torch, rs, cfg, rng, corpus)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(AUDIT_STEPS):
+            state = decode(rs.params, state, res)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / AUDIT_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    print(f"audit (a): {AUDIT_STEPS} full-resident batch-8 decode steps of "
+          f"{cfg.name} ({cfg.n_layers} layers, published widths) under "
+          f"set_sync_debug_mode(\"error\"): no synchronising call | "
+          f"{ms:.2f} ms/step | pass | on {name}", flush=True)
+
+    # (d) the dry run of the same serve on the meta device
+    meta_state, meta_res = meta_serve_state(cfg, 8, MAX_LEN, rs.policy)
+    dry = measure(decode, (meta_model(cfg), meta_state, meta_res))
+    ratio = dry["peak_live_bytes"] / peak
+    ok_d = 0.5 < ratio < 2.0
+    print(f"audit (d): dry run of (a)'s decode on meta: peak "
+          f"{dry['peak_live_bytes'] / 1e9:.2f} GB predicted (params "
+          f"{dry['param_bytes'] / 1e9:.2f} GB), max_memory_allocated over "
+          f"(a)'s steps {peak / 1e9:.2f} GB; ratio {ratio:.3f} | "
+          f"{'pass' if ok_d else 'FAIL'} | on {name}", flush=True)
+
+    # (c) capture one full-resident decode step in a CUDA graph
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode(rs.params, state, res)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            decode(rs.params, state, res)
+        captured = "captured"
+    except Exception as e:               # noqa: BLE001 — printed: a check
+        captured = f"not captured: {type(e).__name__}: {str(e)[:300]}"
+    del graph
+    torch.cuda.synchronize()
+    print(f"audit (c): one full-resident decode step in a CUDA graph on a "
+          f"side stream: {captured} | on {name}", flush=True)
+    del state, decode, rs
+    free(torch)
+
+    # (b) pipelined: the synchronising calls of each step and its seams
+    rs = ServeSpec(cfg=cfg, policy="dali",
+                   dali_cfg=default_dali_config(cfg, cache_ratio=0.25),
+                   batch_size=8, max_len=MAX_LEN,
+                   offload=OffloadSpec(mode="pipelined")).resolve(params)
+    state, decode = audit_prefill(torch, rs, cfg, rng, corpus)
+    seams = {s.name: s for s in CALLBACK_SEAMS.values()}   # the store's
+    per_step, ok_b = [], True
+    for _ in range(AUDIT_STEPS):
+        before = {k: s.entries for k, s in seams.items()}
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state = decode(rs.params, state, res)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        entered = {k: s.entries - before[k] for k, s in seams.items()
+                   if s.entries > before[k]}
+        n_sync = sum("synchroniz" in str(w.message) for w in caught)
+        reads = entered.get("read_misses", 0)
+        fetches = entered.get("fetch_weights", 0)
+        per_step.append((n_sync, reads, fetches))
+        ok_b = ok_b and reads == cfg.n_layers and n_sync >= reads
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()       # ... and ends here
+    print(f"audit (b): {AUDIT_STEPS} pipelined batch-8 decode steps at cache "
+          f"ratio 0.25 under set_sync_debug_mode(\"warn\"): synchronising "
+          f"calls per step {[n for n, _, _ in per_step]}; seams entered per "
+          f"step: read_misses {[r for _, r, _ in per_step]}, fetch_weights "
+          f"{[f for _, _, f in per_step]}; the census predicts read_misses + "
+          f"fetch_weights = {[r + f for _, r, f in per_step]} | "
+          f"{'pass' if ok_b else 'FAIL'} | on {name}", flush=True)
+    del state, decode, rs
+    free(torch)
+    need = ("gating", "expert_ffn_ragged", "expert_ffn_grouped",
+            "flash_attention")
+    ran = all(counts[k] > 0 for k in need)
+    print(f"audit: launches {json.dumps(counts)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ok_d and ok_b and ran, counts
+
+
+def remat_phase(torch, kernels, name):
+    """(e) phase 9's training step (Mixtral-8x7B at published widths, 2
+    layers, batch 8 x 128) with ``remat=True`` and without, 3 steps each
+    on the same batch: ms per step (forward + backward, CUDA events), peak
+    device memory, and the largest gradient difference between the two
+    (each leaf relative to its max |g|, within 3e-2).  Returns (ok,
+    launch counts of the remat steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus, batches
+    from repro_torch.models.model import init_model
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mixtral-8x7b").replace(n_layers=TRAIN_LAYERS)
+    params = init_model(cfg, seed=0, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
+        batches(MarkovCorpus(vocab=cfg.vocab, seed=0), TRAIN_BATCH,
+                TRAIN_SEQ, 1, seed=0))).items()}
+    runs = {}
+    for remat in (False, True):
+        loss_fn = make_loss_fn(cfg.replace(remat=remat))
+        value_and_grad(loss_fn, params, batch)            # warm-up
+        torch.cuda.synchronize()
+        if remat:
+            kernels.reset_launch_counts()  # the remat path starts here
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            (_, m), grads = value_and_grad(loss_fn, params, batch)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        runs[remat] = (times, torch.cuda.max_memory_allocated(), grads,
+                       float(m["loss"]))
+        del grads
+    counts = kernels.launch_counts()       # ... and ends here
+    errs = [rel_err(a, b) for a, b in zip(tree_leaves(runs[True][2]),
+                                          tree_leaves(runs[False][2]))]
+    ok = max(errs) < BF16_TOL and all(
+        counts[k] > 0 for k in ("gating", "expert_ffn_ragged",
+                                "flash_attention"))
+    for remat in (False, True):
+        times, peak, _, loss = runs[remat]
+        print(f"remat (e): {cfg.name} {cfg.n_layers} layers, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat={remat}: forward + "
+              f"backward {' / '.join(f'{t:.1f}' for t in times)} ms, peak "
+              f"device memory {peak / 1e9:.2f} GB, loss {loss:.4f} | on "
+              f"{name}", flush=True)
+    print(f"remat (e): gradients with remat against without, {len(errs)} "
+          f"leaves: max rel_err {max(errs):.3e}; launches under remat "
+          f"{json.dumps(counts)} (each forward kernel twice a step: the "
+          f"forward and the backward's recompute) | "
+          f"{'pass' if ok else 'FAIL'}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params, runs
+    free(torch)
+    return ok, counts
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -3450,6 +3679,12 @@ def main():
         "gating", "expert_ffn_ragged", "expert_ffn_grouped",
         "flash_attention"))
 
+    # -- phase 15 (a)-(d): the serving-path audit on phase 5's model ---------
+    # (run here, while phase 5's model is on the card; phase 6 takes it)
+    t0 = time.perf_counter()
+    audit_ok, audit_counts = audit_phase(torch, kernels, card, ctx)
+    print(f"audit: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- phase 6: physical offload -------------------------------------------
     cfg8, res_vecs, batch2 = ctx["cfg"], ctx["res_vecs"], ctx["batch2"]
     offload_ok, off_counts = offload_phase(torch, kernels, name, ctx)
@@ -3475,6 +3710,8 @@ def main():
     # -- phase 9: training ---------------------------------------------------
     # every phase-9 reading carries the card's name and power limit
     train_ok, train_counts = train_phase(torch, kernels, card)
+    # -- phase 15 (e): cfg.remat at phase 9's shapes -------------------------
+    remat_ok, remat_counts = remat_phase(torch, kernels, card)
 
     # -- phase 10: Qwen3-30B-A3B and DeepSeek-V2-Lite -------------------------
     models_ok, model_counts = models_phase(torch, kernels, card)
@@ -3523,6 +3760,8 @@ def main():
                     "launches_faults_little": fault_counts[r["name"]],
                     "launches_long": long_counts[r["name"]],
                     "launches_examples": example_counts[r["name"]],
+                    "launches_audit": audit_counts[r["name"]],
+                    "launches_remat": remat_counts[r["name"]],
                     **{f"launches_{t}": c[r["name"]]
                        for t, c in arch_counts.items()},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3549,6 +3788,8 @@ def main():
                               ("long", long_ok),
                               ("examples", examples_ok),
                               ("archs", archs_ok),
+                              ("audit", audit_ok),
+                              ("remat", remat_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

@@ -11,6 +11,19 @@ gradient, the kernel's launch runs inside a ``torch.autograd.Function``
 whose backward recomputes through the plain version (as the JAX package's
 custom VJP of the expert FFN does); each such backward adds one to its
 ``*_bwd`` entry, so a training run can show that every backward ran.
+Under ``cfg.remat`` a training step runs each super-block's forward a
+second time in its backward, so ``LAUNCHES`` counts those kernels twice
+(``models/model.py::apply_model``).
+
+On the ``meta`` device (the shape dry run, ``launch/dryrun.py``) each
+wrapper calls its kernel's shape op (``torch.ops.repro_torch.*``): an
+empty output of the kernel's shape and dtype, nothing else allocated,
+and the kernel's FLOPs (the formula beside it) added to a
+``torch.utils.flop_counter.FlopCounterMode`` in progress.  Its backward
+there is a shape op too (the gradients' shapes, twice the forward's
+FLOPs), so the dry run does not hold the intermediates of the plain
+recompute that the card's backward runs.  Nothing is launched or counted
+on ``meta``.
 """
 from __future__ import annotations
 

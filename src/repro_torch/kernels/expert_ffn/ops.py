@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels.build import check, library
@@ -65,8 +66,75 @@ def expert_ffn_plain(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     return torch.where(valid[..., None], out, 0).to(xe.dtype)
 
 
+def flops(G: int, C: int, d: int, f: int) -> int:
+    """The kernel's operations over G groups of C rows: three products of
+    2 d f each per row (every row of the bucket: on ``meta`` the counts
+    are not known)."""
+    return 6 * G * C * d * f
+
+
+@torch.library.custom_op(
+    "repro_torch::expert_ffn", mutates_args=(),
+    schema="(Tensor xe, Tensor w_gate, Tensor w_up, Tensor w_down, "
+           "Tensor? counts, Tensor? expert_ids, str act) -> Tensor")
+def _shape_op(xe, w_gate, w_up, w_down, counts, expert_ids, act):
+    """K2 on the ``meta`` device: only its fake (shape) implementation and
+    FLOP formula exist."""
+    raise RuntimeError("repro_torch::expert_ffn runs on the meta device "
+                       "only")
+
+
+@_shape_op.register_fake
+def _(xe, w_gate, w_up, w_down, counts, expert_ids, act):
+    return torch.empty_like(xe)
+
+
+@register_flop_formula(torch.ops.repro_torch.expert_ffn)
+def _flop_formula(xe, w_gate, *args, out_shape=None, **kwargs):
+    return flops(*xe, w_gate[2])
+
+
+@torch.library.custom_op(
+    "repro_torch::expert_ffn_backward", mutates_args=(),
+    schema="(Tensor xe, Tensor w_gate, Tensor w_up, Tensor w_down, "
+           "Tensor gy) -> (Tensor, Tensor, Tensor, Tensor)")
+def _shape_op_backward(xe, w_gate, w_up, w_down, gy):
+    """K2's backward on the ``meta`` device: the four gradients' shapes and
+    twice the forward's FLOPs.  (On the card ``ExpertFFNFn`` recomputes
+    through the plain version in float32; the dry run does not hold those
+    intermediates.)"""
+    raise RuntimeError("repro_torch::expert_ffn_backward runs on the meta "
+                       "device only")
+
+
+@_shape_op_backward.register_fake
+def _(xe, w_gate, w_up, w_down, gy):
+    return tuple(torch.empty_like(t) for t in (xe, w_gate, w_up, w_down))
+
+
+@register_flop_formula(torch.ops.repro_torch.expert_ffn_backward)
+def _flop_formula_backward(xe, w_gate, *args, out_shape=None, **kwargs):
+    return 2 * flops(*xe, w_gate[2])
+
+
+def _meta_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _meta_backward(ctx, gy):
+    return torch.ops.repro_torch.expert_ffn_backward(
+        *ctx.saved_tensors, gy) + (None, None, None)
+
+
+_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
+
+
 def _launch(xe, w_gate, w_up, w_down, counts, expert_ids, act: str):
-    """Launch the CUDA kernel on checked tensors -> (G, C, d)."""
+    """Launch the CUDA kernel on checked tensors -> (G, C, d); on ``meta``
+    the shape op."""
+    if xe.device.type == "meta":
+        return torch.ops.repro_torch.expert_ffn(xe, w_gate, w_up, w_down,
+                                                counts, expert_ids, act)
     G, C, d = xe.shape
     f = w_gate.shape[2]
     y = torch.empty_like(xe)
@@ -114,8 +182,9 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     if xe.device.type == "cpu":
         return expert_ffn_plain(xe, w_gate, w_up, w_down, counts, expert_ids,
                                 act)
-    if xe.device.type != "cuda":
-        raise ValueError(f"expert_ffn takes CPU or CUDA tensors, got {xe.device}")
+    if xe.device.type not in ("cuda", "meta"):
+        raise ValueError(f"expert_ffn takes CPU, CUDA or meta tensors, got "
+                         f"{xe.device}")
     G, C, d = xe.shape
     E, d_w, f = w_gate.shape
     for name, t, shape in (("w_gate", w_gate, (E, d, f)),
@@ -149,7 +218,7 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
         if t.data_ptr() % 16:
             raise ValueError(f"expert_ffn's CUDA kernel needs 16-byte-aligned "
                              f"tensors; {name} is not")
-    if torch.is_grad_enabled() and any(
+    if xe.device.type != "meta" and torch.is_grad_enabled() and any(
             t.requires_grad for t in (xe, w_gate, w_up, w_down)):
         return ExpertFFNFn.apply(xe, w_gate, w_up, w_down, counts,
                                  expert_ids, act)

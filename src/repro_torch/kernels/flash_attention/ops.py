@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels.build import check, library
@@ -145,9 +147,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention takes CPU, CUDA or meta tensors, "
+                         f"got {q.device}")
     B, Sq, Hq, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
             or tuple(v.shape) != tuple(k.shape):
@@ -180,14 +182,94 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"aligned tensors; {name} is not")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     opts = (bool(causal), int(window), float(softcap), float(scale))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if q.device.type != "meta" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, *opts)
     return _launch(q, k, v, *opts)
 
 
+def pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves visible, query i at key position
+    Sk - Sq + i: what the kernel computes (it skips tiles no row sees)."""
+    qpos = np.arange(Sk - Sq, Sk, dtype=np.int64)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flops(B: int, Sq: int, Sk: int, Hq: int, D: int, causal: bool,
+          window: int) -> int:
+    """The kernel's operations: Q K^T and P V, 2 D each per visible pair."""
+    return 4 * B * Hq * D * pairs(Sq, Sk, causal, window)
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float softcap, float scale) -> Tensor")
+def _shape_op(q, k, v, causal, window, softcap, scale):
+    """K3 on the ``meta`` device: only its fake (shape) implementation and
+    FLOP formula exist."""
+    raise RuntimeError("repro_torch::flash_attention runs on the meta "
+                       "device only")
+
+
+@_shape_op.register_fake
+def _(q, k, v, causal, window, softcap, scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flop_formula(q, k, v, causal, window, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return flops(B, Sq, k[1], Hq, D, causal, window)
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention_backward", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor go, bool causal, "
+           "int window) -> (Tensor, Tensor, Tensor)")
+def _shape_op_backward(q, k, v, go, causal, window):
+    """K3's backward on the ``meta`` device: dq, dk, dv's shapes and twice
+    the forward's FLOPs.  (On the card ``FlashAttentionFn`` recomputes
+    through the plain version; the dry run does not hold its score
+    blocks.)"""
+    raise RuntimeError("repro_torch::flash_attention_backward runs on the "
+                       "meta device only")
+
+
+@_shape_op_backward.register_fake
+def _(q, k, v, go, causal, window):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flop_formula_backward(q, k, v, go, causal, window, *args,
+                           out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return 2 * flops(B, Sq, k[1], Hq, D, causal, window)
+
+
+def _meta_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3])
+    ctx.mask = inputs[3:5]
+
+
+def _meta_backward(ctx, go):
+    return torch.ops.repro_torch.flash_attention_backward(
+        *ctx.saved_tensors, go, *ctx.mask) + (None, None, None, None)
+
+
+_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
+
+
 def _launch(q, k, v, causal: bool, window: int, softcap: float,
             scale: float):
-    """Launch the CUDA kernel on checked tensors -> (B, Sq, Hq, D)."""
+    """Launch the CUDA kernel on checked tensors -> (B, Sq, Hq, D); on
+    ``meta`` the shape op."""
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
+                                                     softcap, scale)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)

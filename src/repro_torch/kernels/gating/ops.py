@@ -16,6 +16,7 @@ nothing for it.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels.build import check, library
@@ -78,8 +79,68 @@ def gating_plain(logits, top_k: int, router_type: str = "softmax_topk",
             idx.to(torch.int32), probs)
 
 
+def flops(T: int, E: int, top_k: int) -> int:
+    """The kernel's operations: one exponential (or sigmoid) and top_k
+    masked comparisons per logit."""
+    return T * E * (1 + top_k)
+
+
+@torch.library.custom_op(
+    "repro_torch::gating", mutates_args=(),
+    schema="(Tensor logits, int top_k, str router_type, bool renormalize) "
+           "-> (Tensor, Tensor, Tensor)")
+def _shape_op(logits, top_k, router_type, renormalize):
+    """K1 on the ``meta`` device: only its fake (shape) implementation and
+    FLOP formula exist."""
+    raise RuntimeError("repro_torch::gating runs on the meta device only")
+
+
+@_shape_op.register_fake
+def _(logits, top_k, router_type, renormalize):
+    T, E = logits.shape
+    return (logits.new_empty((T, top_k)),
+            logits.new_empty((T, top_k), dtype=torch.int32),
+            logits.new_empty((T, E)))
+
+
+@register_flop_formula(torch.ops.repro_torch.gating)
+def _flop_formula(logits, top_k, *args, out_shape=None, **kwargs):
+    return flops(*logits, top_k)
+
+
+@torch.library.custom_op(
+    "repro_torch::gating_backward", mutates_args=(),
+    schema="(Tensor logits, Tensor g_gates, Tensor g_probs) -> Tensor")
+def _shape_op_backward(logits, g_gates, g_probs):
+    """K1's backward on the ``meta`` device: the logits' gradient shape."""
+    raise RuntimeError("repro_torch::gating_backward runs on the meta "
+                       "device only")
+
+
+@_shape_op_backward.register_fake
+def _(logits, g_gates, g_probs):
+    return torch.empty_like(logits)
+
+
+def _meta_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+
+
+def _meta_backward(ctx, g_gates, g_idx, g_probs):
+    (logits,) = ctx.saved_tensors
+    return (torch.ops.repro_torch.gating_backward(
+        logits, g_gates, g_probs), None, None, None)
+
+
+_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
+
+
 def _launch(logits, top_k: int, router_type: str, renormalize: bool):
-    """Launch the CUDA kernel on checked (T, E) float32 logits."""
+    """Launch the CUDA kernel on checked (T, E) float32 logits; on ``meta``
+    the shape op."""
+    if logits.device.type == "meta":
+        return torch.ops.repro_torch.gating(logits, top_k, router_type,
+                                            renormalize)
     T, E = logits.shape
     variant, width = plan(E, top_k)
     gates = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
@@ -131,14 +192,16 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
                          f"got {router_type!r}")
     if logits.device.type == "cpu":
         return gating_plain(logits, top_k, router_type, renormalize)
-    if logits.device.type != "cuda":
-        raise ValueError(f"gating takes CPU or CUDA tensors, got {logits.device}")
+    if logits.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gating takes CPU, CUDA or meta tensors, got "
+                         f"{logits.device}")
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError("gating takes (T, E) float32 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("gating needs contiguous logits")
-    if torch.is_grad_enabled() and logits.requires_grad:
+    if logits.device.type != "meta" and torch.is_grad_enabled() \
+            and logits.requires_grad:
         return GatingFn.apply(logits, top_k, router_type, renormalize)
     return _launch(logits, top_k, router_type, renormalize)
 

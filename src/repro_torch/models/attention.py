@@ -106,8 +106,9 @@ def _update_cache(cache, positions, **new):
 
     Shared positions (S,): every position lands at slot ``pos % S_c``; a
     chunk longer than the buffer keeps its last S_c tokens, and a chunk
-    that runs past the buffer's end wraps to its start (two contiguous
-    writes).  Per-slot positions (B, S): each row scatters to its own
+    that runs past the buffer's end wraps to its start.  The slots are
+    indexed on the positions' device, so the write reads nothing back to
+    the host.  Per-slot positions (B, S): each row scatters to its own
     slots."""
     S_c = cache["pos"].shape[1]
     if positions.dim() == 2:
@@ -121,17 +122,11 @@ def _update_cache(cache, positions, **new):
     if positions.shape[0] > S_c:
         new = {key: t[:, -S_c:] for key, t in new.items()}
         positions = positions[-S_c:]
-    S = positions.shape[0]
-    # the start slot is read on the host: prefill positions are a host-side
-    # arange, so this costs no device round trip on the serving path
-    start = int(positions[0]) % S_c
-    head = min(S, S_c - start)           # slots start.. before the wrap
-    new["pos"] = positions[None].expand(cache["pos"].shape[0], S)
+    slot = (positions % S_c).long()
+    new["pos"] = positions[None].expand(cache["pos"].shape[0],
+                                        positions.shape[0])
     for key, t in new.items():
-        dst = cache[key]
-        dst[:, start:start + head] = t[:, :head].to(dst.dtype)
-        if head < S:
-            dst[:, :S - head] = t[:, head:].to(dst.dtype)
+        cache[key][:, slot] = t.to(cache[key].dtype)
     return cache
 
 

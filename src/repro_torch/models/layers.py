@@ -8,6 +8,8 @@ run in float32, everything else in ``cfg.dtype``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -64,13 +66,21 @@ def rms_norm_vec(w, x, eps: float = 1e-6):
 # Rotary position embeddings
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device):
+    """The rotary frequencies on ``device``, built once per (width, base,
+    device): built at every call they were a host-to-device copy, which
+    waits for the device, in every attention layer of every step."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    return torch.tensor(inv_freq.astype(np.float32), device=device)
+
+
 def rope_table(positions, head_dim: int, theta: float):
     """cos/sin tables for integer positions -> (..., head_dim // 2).
 
     The frequencies are built in float64 and meet the positions in
     float32, as in the reference (numpy float64 cast to float32 there)."""
-    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
-    inv = torch.tensor(inv_freq.astype(np.float32), device=positions.device)
+    inv = _inv_freq(head_dim, theta, positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import pinned_empty, resolve_device, torch_dtype
 from repro_torch.tree import tree_map, tree_map_with_path
@@ -107,8 +108,20 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``params["encoder"] = {"stack", "final_norm"}``: one stacked
     ``("attn", "dense")`` position of ``cfg.encoder.n_layers`` layers."""
     dev = resolve_device(device)
-    host = experts_on_host(experts)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return _init_params(cfg, gen, dev, experts_on_host(experts))
 
+
+def meta_model(cfg: ModelConfig):
+    """``init_model(cfg)``'s tree on the ``meta`` device: every leaf's shape
+    and dtype, no storage (the shape dry run's counterpart of the
+    reference's ``jax.eval_shape(init_model)``; a CPU generator feeds draws
+    that draw nothing)."""
+    return _init_params(cfg, torch.Generator(), torch.device("meta"), False)
+
+
+def _init_params(cfg: ModelConfig, gen, dev, host: bool):
     def block(i, kinds):
         blk = init_block(gen, cfg, kinds, dev)
         if not host:
@@ -117,8 +130,6 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
             lambda path, a: host_empty(a.shape, a.dtype, dev).copy_(a)
             if is_expert_leaf(("prefix", i) + path, cfg) else a, blk)
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     params = {
         "embed": init_embedding(gen, cfg, dev),
@@ -142,7 +153,19 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                 dtype=None, n_cross: Optional[int] = None):
-    dev = resolve_device(device)
+    return _build_caches(cfg, batch, max_len, resolve_device(device), dtype,
+                         n_cross)
+
+
+def meta_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                n_cross: Optional[int] = None):
+    """``init_caches``' tree on the ``meta`` device (shapes and dtypes)."""
+    return _build_caches(cfg, batch, max_len, torch.device("meta"), dtype,
+                         n_cross)
+
+
+def _build_caches(cfg: ModelConfig, batch: int, max_len: int, dev, dtype,
+                  n_cross):
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     mk = lambda kinds: init_block_cache(cfg, kinds, batch, max_len, dev,
                                         dtype=dtype, n_cross=n_cross)
@@ -235,8 +258,9 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
                                  **slot_kw)
         infos.append(_trim_info(info, trace))
 
-    per_pos = [[] for _ in period_pat]
-    for s in range(n_super):
+    def super_block(x, s):
+        """The period's blocks of super-block ``s`` -> (x, their infos)."""
+        out = []
         for p, kinds in enumerate(period_pat):
             p_slice = tree_map(lambda a: a[s], params["scan"][p])
             c = (tree_map(lambda a: a[s], caches["scan"][p])
@@ -248,7 +272,28 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
                                      positions=positions, cache=c,
                                      moe_capacity=moe_capacity, slots=sl,
                                      **slot_kw)
-            per_pos[p].append(_trim_info(info, trace))
+            out.append(_trim_info(info, trace))
+        return x, out
+
+    # cfg.remat: each super-block of the stack (not the prefix layers, as in
+    # the reference's jax.checkpoint of the scan body) keeps only its input
+    # for the backward and runs its forward again there.  The infos come
+    # from the first forward (the recompute's are dropped); the forward has
+    # no randomness, so no RNG state is kept.  Under remat a training step
+    # runs each super-block's forward twice, so K1, K2 and K3 launch twice
+    # (kernels.LAUNCHES counts both), and their autograd Functions'
+    # backwards then recompute through the plain versions once, as without
+    # remat.
+    remat = cfg.remat and torch.is_grad_enabled()
+    per_pos = [[] for _ in period_pat]
+    for s in range(n_super):
+        if remat:
+            x, out = checkpoint(super_block, x, s, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, out = super_block(x, s)
+        for p, info in enumerate(out):
+            per_pos[p].append(info)
     infos.append(tuple(
         None if rows[0] is None
         else {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

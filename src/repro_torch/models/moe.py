@@ -40,6 +40,8 @@ inputs, aux/z losses and drops — what the DALI policy schedules on.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -50,6 +52,106 @@ from repro_torch.kernels.gating.ops import gating
 
 from .config import ModelConfig, MoEConfig, scan_pattern
 from .layers import apply_mlp, dense_init, init_mlp
+
+# --------------------------------------------------------------------------
+# Host seam registry (the reference's callback seams, DESIGN.md §12)
+# --------------------------------------------------------------------------
+# The registered seams are the ONLY functions a decode or prefill step may
+# use to read device data on the host or to compute on the host; the
+# serving-path audit (repro_torch/analysis/step_audit.py) flags a host read
+# anywhere else.  Where the reference's seams are ``pure_callback`` /
+# ``io_callback`` targets inside a jitted graph, the port's are the expert
+# store's methods that the eager step calls (serving/expert_store.py),
+# registered by the ``callback_seam`` decorator.  A seam counts its
+# entries, and an active census (``add_seam_listener``) sees each entry
+# with its arguments: on the CPU ``.cpu()`` dispatches nothing, so the
+# entries are how the audit sees a step leave the device there.
+
+SEAM_KINDS = ("read", "stage", "host")
+
+
+@dataclasses.dataclass
+class CallbackSeam:
+    """One registered host seam.
+
+    kind           — "read" (a device-to-host read of device data) |
+                     "stage" (host-chosen weights copied or dequantized
+                     into device staging rows; reads nothing back) |
+                     "host" (computes on the host)
+    cond_required  — the seam may be entered only on a step that needs it
+                     (a miss to serve), so an all-hit step never leaves the
+                     device (the decode fast-path contract)
+    entries        — times the seam was entered in this process
+    """
+    name: str
+    kind: str
+    cond_required: bool = True
+    module: str = ""
+    entries: int = 0
+
+
+CALLBACK_SEAMS: dict = {}
+_SEAM_LISTENERS: list = []
+
+
+def register_callback_seam(name: str, func, *, kind: str = "read",
+                           cond_required: bool = True) -> CallbackSeam:
+    """Declare ``func`` (a function or bound/unbound method) as a legal
+    host seam of serving steps.  Idempotent per function."""
+    if kind not in SEAM_KINDS:
+        raise ValueError(f"kind must be one of {'|'.join(SEAM_KINDS)}, "
+                         f"got {kind!r}")
+    fn = getattr(func, "__func__", func)
+    seam = CallbackSeam(name=name, kind=kind, cond_required=cond_required,
+                        module=getattr(fn, "__module__", ""))
+    CALLBACK_SEAMS[fn] = seam
+    return seam
+
+
+def lookup_callback_seam(func):
+    """The :class:`CallbackSeam` registered for ``func`` (unwrapping bound
+    methods and ``functools.partial`` chains), or None."""
+    fn = func
+    while True:
+        if hasattr(fn, "__func__"):
+            fn = fn.__func__
+        elif isinstance(fn, functools.partial):
+            fn = fn.func
+        else:
+            break
+    return CALLBACK_SEAMS.get(fn)
+
+
+def callback_seam(name: str, *, kind: str, cond_required: bool = True):
+    """Decorator: register the function as a host seam; each call counts
+    one entry and is announced to the active listeners (``enter(seam,
+    args)`` before the body, ``exit(seam)`` after it)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entered(*args, **kwargs):
+            seam.entries += 1
+            listeners = tuple(_SEAM_LISTENERS)
+            for ls in listeners:
+                ls.enter(seam, args)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for ls in listeners:
+                    ls.exit(seam)
+
+        seam = register_callback_seam(name, entered, kind=kind,
+                                      cond_required=cond_required)
+        return entered
+    return wrap
+
+
+def add_seam_listener(listener):
+    _SEAM_LISTENERS.append(listener)
+
+
+def remove_seam_listener(listener):
+    _SEAM_LISTENERS.remove(listener)
+
 
 # the routed expert stacks of an MoE layer's params: what a physical-offload
 # store keeps on the host and ``strip_expert_params`` removes
@@ -183,8 +285,8 @@ def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
     hit = slot >= 0
     if live is not None:
         hit = hit | ~live.repeat_interleave(K)
-    got = slot_fetch.read_misses(torch.stack([flat_e,
-                                              hit.to(torch.int32)]))
+    got = slot_fetch.read_misses(lid, torch.stack([flat_e,
+                                                   hit.to(torch.int32)]))
     e_np, hit_np = got[0], got[1].astype(bool)
     xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()
     ys = expert_ffn(xs, slots["gate"], slots["up"], slots["down"],
@@ -194,7 +296,7 @@ def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
     if not hit_np.all():
         miss = ~hit
         if slot_fetch.fallback == "host":
-            ym = slot_fetch.host_ffn(lid, xf.cpu(), e_np, hit_np)
+            ym = slot_fetch.host_ffn(lid, xf, e_np, hit_np)
         else:
             stage = (slot_fetch.little_weights
                      if slot_fetch.fallback == "little"
@@ -225,7 +327,7 @@ def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
     slot_fetch.wait_layer(lid)
     E = xe.shape[0]
     slot_of = slots["slot_of"]
-    need = ((slot_fetch.read_misses(counts, prefill=True) > 0)
+    need = ((slot_fetch.read_misses(lid, counts, prefill=True) > 0)
             & (slots["slot_of_np"] < 0))
     ye = expert_ffn(xe, slots["gate"], slots["up"], slots["down"],
                     counts=torch.where(slot_of >= 0, counts, 0),
@@ -432,9 +534,9 @@ def apply_moe(params, x, cfg: ModelConfig, *,
             # invalid rows read as the virtual expert E, never needed
             key = idx.reshape(-1) if vrep is None else \
                 torch.where(vrep, idx.reshape(-1), E)
-            e_np = slot_fetch.read_misses(key, prefill=True)
+            e_np = slot_fetch.read_misses(slots["lid"], key, prefill=True)
             host_hit = ~np.append(host_need, False)[e_np]
-            ys_host = slot_fetch.prefill_host(slots["lid"], xf.cpu(), e_np,
+            ys_host = slot_fetch.prefill_host(slots["lid"], xf, e_np,
                                               host_hit).to(x.device)
             host_miss = ~torch.from_numpy(host_hit).to(x.device)
             contrib = torch.where((host_miss & keep_s[inv])[:, None],

@@ -85,7 +85,7 @@ from repro_torch.core.cost_model import CostModel
 from repro_torch.device import pinned_empty
 from repro_torch.kernels.expert_ffn.ops import ACTS
 from repro_torch.models.config import ModelConfig, scan_pattern
-from repro_torch.models.moe import EXPERT_KEYS
+from repro_torch.models.moe import EXPERT_KEYS, callback_seam
 from repro_torch.serving.faults import (DEGRADED, HEALTHY, LITTLE,
                                         DegradationLadder, FaultInjector,
                                         HostReadError, LinkWatchdog,
@@ -753,10 +753,14 @@ class ExpertStore:
 
     # -- misses --------------------------------------------------------------
 
-    def read_misses(self, t: torch.Tensor, prefill: bool = False
+    @callback_seam("read_misses", kind="read")
+    def read_misses(self, lid: int, t: torch.Tensor, prefill: bool = False
                     ) -> np.ndarray:
         """The per-layer device-to-host read that tells the host which rows
-        miss (counted in ``miss_reads`` / ``prefill_miss_reads``)."""
+        of MoE layer ``lid`` miss (counted in ``miss_reads`` /
+        ``prefill_miss_reads``).  Every slot-path layer enters it, also on a
+        step where every row hits: the serving-path audit reports that
+        (``E_CALLBACK_UNGUARDED``)."""
         self._bump("prefill_miss_reads" if prefill else "miss_reads")
         return t.cpu().numpy()
 
@@ -810,6 +814,7 @@ class ExpertStore:
         self._bump("fallback_rows", len(rows))
         return wg, wu, wd, srow, ids
 
+    @callback_seam("fetch_weights", kind="stage")
     def fetch_weights(self, lid: int, flat_e, hit):
         """Demand-fetch the missing experts of one decode layer.  ``flat_e``
         (T*K,) and ``hit`` (T*K,) are host arrays.  Returns the staging
@@ -819,6 +824,7 @@ class ExpertStore:
         self._bump("fallback_fetches", len(ids))
         return wg, wu, wd, srow
 
+    @callback_seam("little_weights", kind="stage")
     def little_weights(self, lid: int, flat_e, hit):
         """``fetch_weights``' contract with the missing experts dequantized
         from the int8 twins: no host read."""
@@ -837,12 +843,18 @@ class ExpertStore:
             out[torch.from_numpy(sel)] = (self._act(xs @ wg) * (xs @ wu)) @ wd
         return out
 
+    @callback_seam("host_ffn", kind="host")
     def host_ffn(self, lid: int, xf, flat_e, hit):
         """The CPU execution tier: run the missing (token, k) rows' expert
-        FFN on the host in float32.  ``xf`` (T, d) is a CPU tensor,
-        ``flat_e`` / ``hit`` (T*K,) host arrays.  Returns (T*K, d) in xf's
-        dtype with miss rows filled and hit rows zero (the reference's
-        ``host_ffn_cb`` contract)."""
+        FFN on the host in float32.  ``xf`` (T, d) is the layer's input on
+        its device (read to the host here), ``flat_e`` / ``hit`` (T*K,)
+        host arrays.  Returns (T*K, d) on the host in xf's dtype with miss
+        rows filled and hit rows zero (the reference's ``host_ffn_cb``
+        contract)."""
+        return self._host_ffn(lid, xf, flat_e, hit)
+
+    def _host_ffn(self, lid: int, xf, flat_e, hit):
+        xf = xf.cpu()
         e = np.asarray(flat_e)
         rows = np.nonzero(~np.asarray(hit))[0]
         self._guard_transient("host-ffn")
@@ -853,6 +865,7 @@ class ExpertStore:
         self._bump("fallback_rows", len(rows))
         return ys
 
+    @callback_seam("prefill_fetch", kind="stage")
     def prefill_fetch(self, lid: int, ids):
         """One prefill wave: copy the wave's experts ``ids`` (ascending) of
         layer ``lid`` into staging rows 0..len(ids)-1."""
@@ -860,6 +873,7 @@ class ExpertStore:
         self._bump("prefill_waves", 1)
         return self._stage_experts(lid, ids)
 
+    @callback_seam("prefill_little", kind="stage")
     def prefill_little(self, lid: int, ids):
         """One prefill wave from the int8 twins: experts ``ids`` of layer
         ``lid`` dequantized into staging rows 0..len(ids)-1 (each counted
@@ -868,10 +882,11 @@ class ExpertStore:
         self._bump("fallback_rows", len(ids))
         return self._little_experts(lid, ids)
 
+    @callback_seam("prefill_host", kind="host")
     def prefill_host(self, lid: int, xf, flat_e, hit):
         """The prefill host tier: ``host_ffn``'s row-wise contract under the
         prefill counters."""
-        ys = self.host_ffn(lid, xf, flat_e, hit)
+        ys = self._host_ffn(lid, xf, flat_e, hit)
         self._bump("prefill_host_rows", int((~np.asarray(hit)).sum()))
         return ys
 

@@ -248,6 +248,30 @@ class ResolvedServe:
                                     seed=seed, device=self.device,
                                     offload=self.store)
 
+    def audit(self, rungs=None, raise_on_violation: bool = True,
+              with_costs: bool = False):
+        """Serving-path audit of THIS resolution's entry points
+        (repro_torch/analysis, DESIGN.md §12): host seams and their
+        guarding, the sync census, updates in place, the weight-capture
+        budget.  Runs each entry point once on this resolution's device
+        (the pool and caches it touches are its own).  Returns the
+        machine-readable report dict; raises
+        :class:`repro_torch.analysis.GraphContractError` on any violation
+        unless ``raise_on_violation=False``.  ``with_costs=True`` also
+        cross-checks the copied bytes and the decode FLOPs against the
+        :class:`~repro_torch.core.cost_model.CostModel`."""
+        from repro_torch.analysis.step_audit import audit_resolved
+        report = audit_resolved(self, rungs=rungs,
+                                raise_on_violation=raise_on_violation)
+        if with_costs:
+            from repro_torch.analysis.contracts import maybe_raise
+            from repro_torch.analysis.cost_audit import audit_costs
+            report["costs"] = audit_costs(self)
+            report["violations"].extend(report["costs"]["violations"])
+            report["ok"] = not report["violations"]
+            maybe_raise(report, raise_on_violation)
+        return report
+
     def server(self, res_vecs=None):
         """The server the spec names, built from this resolution."""
         from repro_torch.serving.scheduler import SERVER_PRESETS
