@@ -3443,8 +3443,8 @@ def audit_phase(torch, kernels, name, ctx):
     model under ``torch.cuda.set_sync_debug_mode("error")``; (b) ten
     pipelined steps (cache ratio 0.25) under "warn", the synchronising
     calls of each step against the host seams it entered (the CPU census's
-    prediction: one ``read_misses`` per MoE layer, and one miss-row upload
-    per layer that fetched); (c) one full-resident decode step captured in
+    prediction, held exactly: one ``read_misses`` per MoE layer, and one
+    miss-row upload per layer that fetched); (c) one full-resident decode step captured in
     a ``torch.cuda.CUDAGraph`` on a side stream (a check, not a gate); (d)
     the meta dry run's peak bytes for (a)'s serve against
     ``max_memory_allocated``.  Returns (ok, launch counts)."""
@@ -3544,7 +3544,7 @@ def audit_phase(torch, kernels, name, ctx):
         reads = entered.get("read_misses", 0)
         fetches = entered.get("fetch_weights", 0)
         per_step.append((n_sync, reads, fetches))
-        ok_b = ok_b and reads == cfg.n_layers and n_sync >= reads
+        ok_b = ok_b and reads == cfg.n_layers and n_sync == reads + fetches
     torch.cuda.synchronize()
     counts = kernels.launch_counts()       # ... and ends here
     print(f"audit (b): {AUDIT_STEPS} pipelined batch-8 decode steps at cache "
@@ -3567,15 +3567,19 @@ def audit_phase(torch, kernels, name, ctx):
 def remat_phase(torch, kernels, name):
     """(e) phase 9's training step (Mixtral-8x7B at published widths, 2
     layers, batch 8 x 128) with ``remat=True`` and without, 3 steps each
-    on the same batch: ms per step (forward + backward, CUDA events), peak
-    device memory, and the largest gradient difference between the two
-    (each leaf relative to its max |g|, within 3e-2).  Returns (ok,
-    launch counts of the remat steps)."""
+    on the same batch: ms per step (forward + backward, CUDA events), the
+    device bytes the forward holds for the backward (what remat exists to
+    cut; it must cut them), peak device memory over the steps, and the
+    largest gradient difference between the two (each leaf relative to
+    its max |g|, within 3e-2).  Only one step's gradients are on the card
+    at a time: the previous step's are dropped before the next, and the
+    run without remat moves its last ones to the host.  Returns (ok, launch counts of the
+    remat steps)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import MarkovCorpus, batches
     from repro_torch.models.model import init_model
     from repro_torch.training.train_step import make_loss_fn, value_and_grad
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     cfg = get_config("mixtral-8x7b").replace(n_layers=TRAIN_LAYERS)
@@ -3583,43 +3587,70 @@ def remat_phase(torch, kernels, name):
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(iter(
         batches(MarkovCorpus(vocab=cfg.vocab, seed=0), TRAIN_BATCH,
                 TRAIN_SEQ, 1, seed=0))).items()}
+    leaves = tree_leaves(params)
+
+    def held_for_backward(loss_fn):
+        """Device bytes a forward leaves allocated for its backward."""
+        out = None
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            out = loss_fn(params, batch)
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated() - base
+        finally:
+            out = None
+            for p in leaves:
+                p.requires_grad_(False)
+
     runs = {}
     for remat in (False, True):
         loss_fn = make_loss_fn(cfg.replace(remat=remat))
         value_and_grad(loss_fn, params, batch)            # warm-up
+        held = held_for_backward(loss_fn)
         torch.cuda.synchronize()
         if remat:
             kernels.reset_launch_counts()  # the remat path starts here
         torch.cuda.reset_peak_memory_stats()
-        times = []
+        times, grads = [], None
         for _ in range(TRAIN_STEPS):
+            grads = None                   # the previous step's gradients
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             (_, m), grads = value_and_grad(loss_fn, params, batch)
             ev[1].record()
             ev[1].synchronize()
             times.append(ev[0].elapsed_time(ev[1]))
-        runs[remat] = (times, torch.cuda.max_memory_allocated(), grads,
-                       float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        if not remat:                      # off the card for the remat run
+            grads = tree_map(lambda g: g.cpu(), grads)
+        runs[remat] = (times, held, peak, grads, float(m["loss"]))
         del grads
     counts = kernels.launch_counts()       # ... and ends here
-    errs = [rel_err(a, b) for a, b in zip(tree_leaves(runs[True][2]),
-                                          tree_leaves(runs[False][2]))]
-    ok = max(errs) < BF16_TOL and all(
+    errs = [rel_err(a, b.cuda()) for a, b in zip(
+        tree_leaves(runs[True][3]), tree_leaves(runs[False][3]))]
+    cut = runs[True][1] < runs[False][1]
+    ok = max(errs) < BF16_TOL and cut and all(
         counts[k] > 0 for k in ("gating", "expert_ffn_ragged",
                                 "flash_attention"))
+    nbytes = sum(p.nbytes for p in leaves)  # the params, and the grads
     for remat in (False, True):
-        times, peak, _, loss = runs[remat]
+        times, held, peak, _, loss = runs[remat]
         print(f"remat (e): {cfg.name} {cfg.n_layers} layers, batch "
               f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat={remat}: forward + "
-              f"backward {' / '.join(f'{t:.1f}' for t in times)} ms, peak "
-              f"device memory {peak / 1e9:.2f} GB, loss {loss:.4f} | on "
+              f"backward {' / '.join(f'{t:.1f}' for t in times)} ms, held "
+              f"by the forward for the backward {held / 1e6:.1f} MB, peak "
+              f"device memory {peak / 1e9:.2f} GB = params {nbytes / 1e9:.2f}"
+              f" + grads {nbytes / 1e9:.2f} + the rest "
+              f"{(peak - 2 * nbytes) / 1e9:.2f} GB, loss {loss:.4f} | on "
               f"{name}", flush=True)
     print(f"remat (e): gradients with remat against without, {len(errs)} "
-          f"leaves: max rel_err {max(errs):.3e}; launches under remat "
-          f"{json.dumps(counts)} (each forward kernel twice a step: the "
-          f"forward and the backward's recompute) | "
-          f"{'pass' if ok else 'FAIL'}; phase "
+          f"leaves: max rel_err {max(errs):.3e}; remat cuts the forward's "
+          f"held bytes: {cut}; launches under remat {json.dumps(counts)} "
+          f"(each forward kernel twice a step: the forward and the "
+          f"backward's recompute) | {'pass' if ok else 'FAIL'}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del params, runs
     free(torch)

@@ -19,11 +19,11 @@ On the ``meta`` device (the shape dry run, ``launch/dryrun.py``) each
 wrapper calls its kernel's shape op (``torch.ops.repro_torch.*``): an
 empty output of the kernel's shape and dtype, nothing else allocated,
 and the kernel's FLOPs (the formula beside it) added to a
-``torch.utils.flop_counter.FlopCounterMode`` in progress.  Its backward
-there is a shape op too (the gradients' shapes, twice the forward's
-FLOPs), so the dry run does not hold the intermediates of the plain
-recompute that the card's backward runs.  Nothing is launched or counted
-on ``meta``.
+``torch.utils.flop_counter.FlopCounterMode`` in progress.  A training
+step goes through the same autograd Functions as on the card, so its
+backward recomputes through the plain version on ``meta`` and the dry
+run counts that recompute's FLOPs and holds its intermediates.  Nothing
+is launched or counted on ``meta``.
 """
 from __future__ import annotations
 
@@ -55,9 +55,10 @@ def recompute_grads(key, plain_fn, inputs, needs, grad_out, n_rest):
     on the saved ``inputs`` under ``enable_grad`` and differentiate it.
     Returns one gradient per input (``None`` where ``needs`` is false), then
     ``n_rest`` ``None`` for the Function's other arguments, and adds one to
-    ``LAUNCHES[key]``."""
+    ``LAUNCHES[key]`` (not on ``meta``)."""
     import torch
-    LAUNCHES[key] += 1
+    if inputs[0].device.type != "meta":
+        LAUNCHES[key] += 1
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         grads = iter(torch.autograd.grad(

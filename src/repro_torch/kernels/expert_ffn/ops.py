@@ -94,41 +94,6 @@ def _flop_formula(xe, w_gate, *args, out_shape=None, **kwargs):
     return flops(*xe, w_gate[2])
 
 
-@torch.library.custom_op(
-    "repro_torch::expert_ffn_backward", mutates_args=(),
-    schema="(Tensor xe, Tensor w_gate, Tensor w_up, Tensor w_down, "
-           "Tensor gy) -> (Tensor, Tensor, Tensor, Tensor)")
-def _shape_op_backward(xe, w_gate, w_up, w_down, gy):
-    """K2's backward on the ``meta`` device: the four gradients' shapes and
-    twice the forward's FLOPs.  (On the card ``ExpertFFNFn`` recomputes
-    through the plain version in float32; the dry run does not hold those
-    intermediates.)"""
-    raise RuntimeError("repro_torch::expert_ffn_backward runs on the meta "
-                       "device only")
-
-
-@_shape_op_backward.register_fake
-def _(xe, w_gate, w_up, w_down, gy):
-    return tuple(torch.empty_like(t) for t in (xe, w_gate, w_up, w_down))
-
-
-@register_flop_formula(torch.ops.repro_torch.expert_ffn_backward)
-def _flop_formula_backward(xe, w_gate, *args, out_shape=None, **kwargs):
-    return 2 * flops(*xe, w_gate[2])
-
-
-def _meta_setup(ctx, inputs, output):
-    ctx.save_for_backward(*inputs[:4])
-
-
-def _meta_backward(ctx, gy):
-    return torch.ops.repro_torch.expert_ffn_backward(
-        *ctx.saved_tensors, gy) + (None, None, None)
-
-
-_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
-
-
 def _launch(xe, w_gate, w_up, w_down, counts, expert_ids, act: str):
     """Launch the CUDA kernel on checked tensors -> (G, C, d); on ``meta``
     the shape op."""
@@ -218,7 +183,7 @@ def expert_ffn(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
         if t.data_ptr() % 16:
             raise ValueError(f"expert_ffn's CUDA kernel needs 16-byte-aligned "
                              f"tensors; {name} is not")
-    if xe.device.type != "meta" and torch.is_grad_enabled() and any(
+    if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xe, w_gate, w_up, w_down)):
         return ExpertFFNFn.apply(xe, w_gate, w_up, w_down, counts,
                                  expert_ids, act)

@@ -182,8 +182,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"aligned tensors; {name} is not")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     opts = (bool(causal), int(window), float(softcap), float(scale))
-    if q.device.type != "meta" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, *opts)
     return _launch(q, k, v, *opts)
 
@@ -223,44 +222,6 @@ def _(q, k, v, causal, window, softcap, scale):
 def _flop_formula(q, k, v, causal, window, *args, out_shape=None, **kwargs):
     B, Sq, Hq, D = q
     return flops(B, Sq, k[1], Hq, D, causal, window)
-
-
-@torch.library.custom_op(
-    "repro_torch::flash_attention_backward", mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, Tensor go, bool causal, "
-           "int window) -> (Tensor, Tensor, Tensor)")
-def _shape_op_backward(q, k, v, go, causal, window):
-    """K3's backward on the ``meta`` device: dq, dk, dv's shapes and twice
-    the forward's FLOPs.  (On the card ``FlashAttentionFn`` recomputes
-    through the plain version; the dry run does not hold its score
-    blocks.)"""
-    raise RuntimeError("repro_torch::flash_attention_backward runs on the "
-                       "meta device only")
-
-
-@_shape_op_backward.register_fake
-def _(q, k, v, go, causal, window):
-    return tuple(torch.empty_like(t) for t in (q, k, v))
-
-
-@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
-def _flop_formula_backward(q, k, v, go, causal, window, *args,
-                           out_shape=None, **kwargs):
-    B, Sq, Hq, D = q
-    return 2 * flops(B, Sq, k[1], Hq, D, causal, window)
-
-
-def _meta_setup(ctx, inputs, output):
-    ctx.save_for_backward(*inputs[:3])
-    ctx.mask = inputs[3:5]
-
-
-def _meta_backward(ctx, go):
-    return torch.ops.repro_torch.flash_attention_backward(
-        *ctx.saved_tensors, go, *ctx.mask) + (None, None, None, None)
-
-
-_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
 
 
 def _launch(q, k, v, causal: bool, window: int, softcap: float,

@@ -108,33 +108,6 @@ def _flop_formula(logits, top_k, *args, out_shape=None, **kwargs):
     return flops(*logits, top_k)
 
 
-@torch.library.custom_op(
-    "repro_torch::gating_backward", mutates_args=(),
-    schema="(Tensor logits, Tensor g_gates, Tensor g_probs) -> Tensor")
-def _shape_op_backward(logits, g_gates, g_probs):
-    """K1's backward on the ``meta`` device: the logits' gradient shape."""
-    raise RuntimeError("repro_torch::gating_backward runs on the meta "
-                       "device only")
-
-
-@_shape_op_backward.register_fake
-def _(logits, g_gates, g_probs):
-    return torch.empty_like(logits)
-
-
-def _meta_setup(ctx, inputs, output):
-    ctx.save_for_backward(inputs[0])
-
-
-def _meta_backward(ctx, g_gates, g_idx, g_probs):
-    (logits,) = ctx.saved_tensors
-    return (torch.ops.repro_torch.gating_backward(
-        logits, g_gates, g_probs), None, None, None)
-
-
-_shape_op.register_autograd(_meta_backward, setup_context=_meta_setup)
-
-
 def _launch(logits, top_k: int, router_type: str, renormalize: bool):
     """Launch the CUDA kernel on checked (T, E) float32 logits; on ``meta``
     the shape op."""
@@ -200,8 +173,7 @@ def gating(logits, top_k: int, router_type: str = "softmax_topk",
                          f"{tuple(logits.shape)} {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("gating needs contiguous logits")
-    if logits.device.type != "meta" and torch.is_grad_enabled() \
-            and logits.requires_grad:
+    if torch.is_grad_enabled() and logits.requires_grad:
         return GatingFn.apply(logits, top_k, router_type, renormalize)
     return _launch(logits, top_k, router_type, renormalize)
 

@@ -149,3 +149,60 @@ def test_validate_costs_ratio_on_paper_models(arch, kind):
     counted, analytic, ratio = validate_costs.validate(arch, kind)
     assert counted > 0
     assert 0.8 <= ratio <= 1.25, (counted, analytic)
+
+
+def _ffn_case(g):
+    E, C, d, f = 4, 8, 64, 128
+    w = lambda *s: (torch.randn(s, generator=g) * 0.1).bfloat16()
+    counts = torch.tensor([3, 8, 0, 5], dtype=torch.int32)
+    return (expert_ffn, (w(E, C, d), w(E, d, f), w(E, d, f), w(E, f, d)),
+            {"counts": counts}, "expert_ffn_bwd", ffn_flops(E, C, d, f))
+
+
+def _attention_case(g):
+    q, k, v = (torch.randn((2, 12, h, 64), generator=g).bfloat16()
+               for h in (8, 2, 2))
+    return (flash_attention, (q, k, v), {"causal": True},
+            "flash_attention_bwd", fa_flops(2, 12, 12, 8, 64, True, 0))
+
+
+def _gating_case(g):
+    return (gating, (torch.randn((6, 8), generator=g), 2), {}, "gating_bwd",
+            gate_flops(6, 8, 2))
+
+
+@pytest.mark.parametrize("case", [_gating_case, _ffn_case, _attention_case])
+def test_meta_backward_is_the_plain_recompute(case):
+    """With gradients on ``meta`` a wrapper goes through its autograd
+    Function, as on the card: the forward is the kernel's shape op, the
+    backward recomputes through the plain version.  So the FLOPs counted on
+    ``meta`` are the kernel's plus those of the plain forward and backward
+    (counted on the CPU), each gradient has its input's layout, and no
+    launch is counted."""
+    from repro_torch import kernels
+    fn, args, kw, key, kernel_flops = case(torch.Generator().manual_seed(0))
+    diff = [a for a in args if torch.is_tensor(a) and a.is_floating_point()]
+
+    def step(device):
+        ins = [a.to(device).requires_grad_(True) if any(a is d for d in diff)
+               else (a.to(device) if torch.is_tensor(a) else a) for a in args]
+        out = fn(*ins, **{n: t.to(device) if torch.is_tensor(t) else t
+                          for n, t in kw.items()})
+        outs = [o for o in (out if isinstance(out, tuple) else (out,))
+                if o.is_floating_point()]
+        grads = torch.autograd.grad(outs, [t for t in ins if torch.is_tensor(t)
+                                           and t.requires_grad],
+                                    [torch.ones_like(o) for o in outs])
+        return grads
+
+    with FlopCounterMode(display=False) as fc_cpu:
+        cpu_grads = step("cpu")         # the plain version, fwd + bwd
+    before = kernels.LAUNCHES[key]
+    with FlopCounterMode(display=False) as fc_meta:
+        meta_grads = step("meta")
+    assert kernels.LAUNCHES[key] == before
+    for c, m in zip(cpu_grads, meta_grads, strict=True):
+        assert m.device.type == "meta"
+        assert tuple(c.shape) == tuple(m.shape) and c.dtype == m.dtype
+    assert fc_meta.get_total_flops() == \
+        kernel_flops + fc_cpu.get_total_flops()
