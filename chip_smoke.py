@@ -165,7 +165,28 @@ outside a checkout.  Phases (any failure exits non-zero):
    ``remat=True`` and without, 3 steps each: ms, peak memory and the
    largest gradient difference (within 3e-2); K1, K2 ragged and grouped
    and K3 launched in (a)-(d) and K1, K2 ragged and K3 in (e) (counts
-   zeroed just before, read just after).
+   zeroed just before, read just after);
+16. ep     — expert parallelism (``models/moe_ep.py``), last, once this
+   process has released the card: ranks spawned by
+   ``launch/mesh.py::run_ranks`` (gloo, every rank on this one card, the
+   exchanged buckets staged through host memory).  (a) Mixtral-8x7B at
+   published widths, 2 layers, bfloat16, capacity factor 0, weights drawn
+   on the card from seed 0 on each of 4 ranks of a (1, 4) mesh, each
+   keeping its 2 experts: a B = 4 x S = 512 ``MarkovCorpus`` prefill
+   through ``apply_model`` under ``rules(make_mesh(1, 4))`` (K1 on each
+   rank's token shard, K4 over the received buckets, K3 replicated)
+   against the single-process port on the same card (K2 ragged): logits
+   within 3e-2, the first MoE layer's workload exact, no drops, ``ep_cx``
+   at most C, the same logits on every rank; at the published capacity
+   factor 1.25 the ragged and the dense exchange drop the same rows and
+   agree within 3e-2; (b) the first MoE layer under a placement solved
+   against a fabric whose busiest rank's link is 8x slower, weights
+   re-sliced from a host copy, bit-equal to the unplaced layer; (c)
+   ``launch/ep_serve.py::run_resilience_trials`` on 8 ranks at the
+   reference's geometry and faults: all five verdicts.  The ranks' K1
+   and K4 launches (counts zeroed just before (a)'s prefill, read just
+   after) go into the ``kernels`` line; each rank's peak memory and
+   ``ep_cx`` and the phase's seconds are printed.
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -185,7 +206,9 @@ Seamless's encoder (S = 1024, D = 64), Gemma-2's local layer at S = 5000
 (window 4096, softcap 50, D = 256; its library call is a compiled
 ``flex_attention``), Llama-3-405B
 (G = 16), Llama-4 (G = 5, K/V heads repeated) and Jamba's attention
-layer.  Phase 6's full-depth
+layer, and phase 16's: K4 at the expert-parallel group layout (8 groups
+over 2 weight sets, C = 256, counts from a routed draw; its library call
+three ``bmm`` over (2, 4 x 256, d)).  Phase 6's full-depth
 serve calibrates its residual vectors through the slot pool.  Each phase
 prints its seconds.  The second-to-last line is the
 ``kernels`` JSON object, the last line ``{"ok": true, "device": {...}}``.
@@ -468,7 +491,7 @@ def kernel_phase(torch, cfg, wave_S):
         h = torch.nn.functional.silu(torch.bmm(xe, wg_)) * torch.bmm(xe, wu_)
         return torch.bmm(h, wd_)
 
-    def ffn_case(name, shape, xe, counts, eids, weights=None):
+    def ffn_case(name, shape, xe, counts, eids, weights=None, lib=None):
         wg, wu, wd = weights or ws
         d, f = wg.shape[1], wg.shape[2]
         y = expert_ffn(xe, wg, wu, wd, counts=counts, expert_ids=eids)
@@ -480,9 +503,9 @@ def kernel_phase(torch, cfg, wave_S):
             tail = torch.arange(xe.shape[1], device=dev)[None] \
                 >= counts[:, None]
             ok = ok and not bool(y[tail].float().abs().sum())
-        if eids is None:
+        if lib is None and eids is None:
             lib = lambda: lib_ffn(xe, wg, wu, wd)
-        else:
+        elif lib is None:
             el = eids.long()
             lib = lambda: lib_ffn(xe, wg[el], wu[el], wd[el])
         G, C = xe.shape[0], xe.shape[1]
@@ -557,7 +580,30 @@ def kernel_phase(torch, cfg, wave_S):
              torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=dev),
              torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev),
              weights=tuple(w[6:8].contiguous() for w in (wg, wu, wd)))
-    del wg, wu, wd, ws, xe
+    # phase 16's expert-parallel layout, from a stream of its own: a rank
+    # of the (1, 4) mesh holds 2 experts and receives a C-row bucket from
+    # each of the 4 sources, group e * 4 + src (G = 8 over 2 weight sets),
+    # counts from a routed draw of 4 sources x 512 tokens top-2; its
+    # library call is the reference's non-TPU form, three bmm over
+    # (2, 4 C, d) (repro/models/moe_ep.py:184-188)
+    gen16 = torch.Generator(device=dev)
+    gen16.manual_seed(EP_SEED)
+    e_loc, C = E // EP_TP, 256
+    idx = torch.rand((EP_TP, 512, E), generator=gen16, device=dev) \
+        .topk(K).indices
+    cnt = torch.stack([torch.bincount(i.reshape(-1), minlength=E)
+                       for i in idx])[:, :e_loc].clamp(max=C)
+    xe = torch.randn((e_loc * EP_TP, C, d), generator=gen16,
+                     device=dev).bfloat16()
+    w_loc = tuple(w[:e_loc] for w in (wg, wu, wd))
+    ffn_case("expert_ffn_grouped", f"ep G={e_loc * EP_TP} C={C} over "
+             f"{e_loc} weight sets d={d} f={f}", xe,
+             cnt.t().reshape(-1).to(torch.int32).contiguous(),
+             torch.arange(e_loc, dtype=torch.int32,
+                          device=dev).repeat_interleave(EP_TP),
+             weights=w_loc,
+             lib=lambda: lib_ffn(xe.reshape(e_loc, EP_TP * C, d), *w_loc))
+    del wg, wu, wd, ws, xe, w_loc
 
     # -- K2 at phase 10's expert widths (d = 2048): the 256-token admission
     # bucket (ragged) and a batch-8 decode (grouped, one group per (token,
@@ -3657,6 +3703,212 @@ def remat_phase(torch, kernels, name):
     return ok, counts
 
 
+# --------------------------------------------------------------------------
+# phase 16: expert parallelism on gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+EP_TP, EP_BATCH, EP_SEQ, EP_LAYERS, EP_SEED = 4, 4, 512, 2, 16
+EP_TRIALS_WORLD = 8          # (c): the reference's (1, 8) mesh
+EP_TIMEOUT_S = 600
+
+
+def ep_rank(rank, world, tokens):
+    """One rank of phase 16 (a) and (b) on the card: Mixtral-8x7B at
+    published widths, 2 layers, bfloat16, capacity factor 0 (no row drops
+    on either side), weights drawn on the card from seed 0 (the same on
+    every rank); rank 0 first runs the single-process port on them (K2
+    ragged).  Each rank then keeps its 'model' slots of the expert stacks
+    (and a host copy of the first MoE layer's, for (b)'s re-route) and
+    runs the prefill under ``rules(make_mesh(1, world))``."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import parse_topology
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import apply_model, collect_field, init_model
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.moe_ep import (permute_expert_params,
+                                           solve_placement)
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config("mixtral-8x7b")
+    cfg = full.replace(n_layers=EP_LAYERS, moe=dataclasses.replace(
+        full.moe, capacity_factor=0.0))
+    cfg125 = full.replace(n_layers=EP_LAYERS)     # the published 1.25
+    E = cfg.moe.n_routed
+    e_loc = E // world
+    V = cfg.vocab
+    tok = torch.as_tensor(tokens, device=dev)
+    params = init_model(cfg, seed=0, device="cuda")
+    out = {"rank": rank}
+    checks = {}
+    if rank == 0:
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            ref_logits, _, ref_infos = apply_model(params, tok, cfg,
+                                                   trace=True)
+        torch.cuda.synchronize()
+        out["ref_launches"] = kernels.launch_counts()
+        ref_w0 = collect_field(ref_infos, "workload")[0]
+        ref_logits = ref_logits[..., :V].float()
+        del ref_infos
+    mlp = params["scan"][0]["mlp"]
+    host0 = {k: mlp[k][0].cpu() for k in ("gate", "up", "down")}
+    for k in ("gate", "up", "down"):
+        mlp[k] = mlp[k][:, rank * e_loc:(rank + 1) * e_loc].clone()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, world)
+    torch.cuda.reset_peak_memory_stats()
+    with shd.rules(mesh), torch.no_grad():
+        # (a) the prefill through the EP path: counts zeroed just before
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _, infos = apply_model(params, tok, cfg, trace=True)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+        logits = logits[..., :V]
+        out["logits_sha1"] = hashlib.sha1(
+            logits.float().cpu().numpy().tobytes()).hexdigest()
+        checks["finite"] = bool(torch.isfinite(logits).all())
+        cx = collect_field(infos, "ep_cx").cpu().tolist()
+        dropped = collect_field(infos, "dropped").cpu().tolist()
+        w0 = collect_field(infos, "workload")[0]
+        C = (EP_BATCH * EP_SEQ) // world          # capacity factor 0
+        out.update(ep_cx=cx, dropped=dropped, C=C)
+        checks["no_drops"] = sum(dropped) == 0
+        checks["ep_cx_at_most_C"] = all(c <= C for c in cx)
+        if rank == 0:
+            out["logits_rel_err"] = rel_err(logits.float(), ref_logits)
+            checks["logits"] = out["logits_rel_err"] < BF16_TOL
+            checks["workload_first_layer"] = bool(torch.equal(w0, ref_w0))
+            del ref_logits
+        x0 = collect_field(infos, "gate_in")[0].reshape(
+            EP_BATCH, EP_SEQ, cfg.d_model)
+        del infos, logits
+        local0 = tree_map(lambda t: t[0], mlp)
+        # (a) at the published capacity factor: both exchanges drop the
+        # same rows
+        y_r, i_r = apply_moe(local0, x0, cfg125)
+        y_d, i_d = apply_moe(local0, x0, cfg125, force_exchange="dense")
+        out["dropped_125"] = (int(i_r["dropped"]), int(i_d["dropped"]))
+        out["ep_cx_125"] = (int(i_r["ep_cx"]), int(i_d["ep_cx"]))
+        out["ragged_dense_rel_err"] = rel_err(y_r, y_d)
+        checks["drops_125"] = out["dropped_125"][0] == out["dropped_125"][1]
+        checks["ragged_dense_125"] = out["ragged_dense_rel_err"] < BF16_TOL
+        del y_r, y_d, i_r, i_d
+        # (b) a placement solved against a fabric with one slow pair: the
+        # link from the rank holding the most demand to the next one, so
+        # the hottest experts must move; each rank re-slices its slots
+        # from the host copy
+        y_id, i_id = apply_moe(local0, x0, cfg, demand_view=True)
+        demand = i_id["ep_counts"].cpu().numpy()
+        hot = int(demand.sum(0).reshape(world, e_loc).sum(1).argmax())
+        fabric = f"flat,{hot}>{(hot + 1) % world}:x8"
+        perm = solve_placement(demand, parse_topology(fabric, world))
+        out["fabric"] = fabric
+        phys = permute_expert_params(host0, perm)
+        placed = dict(local0, **{k: phys[k][rank * e_loc:(rank + 1) * e_loc]
+                                 .to(dev) for k in ("gate", "up", "down")})
+        y_pl, i_pl = apply_moe(placed, x0, cfg, placement=perm,
+                               demand_view=True)
+        torch.cuda.synchronize()
+        out["placement"] = perm.tolist()
+        checks["placement_moves"] = not np.array_equal(perm, np.arange(E))
+        checks["placement_bit_exact"] = bool(torch.equal(y_pl, y_id))
+        checks["demand_view"] = bool(torch.equal(i_pl["ep_counts"],
+                                                 i_id["ep_counts"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def ep_phase(torch, kernels, name):
+    """Phase 16: (a) and (b) on ``EP_TP`` ranks (``ep_rank``), then (c)
+    the reference's resilience trials on ``EP_TRIALS_WORLD`` ranks, every
+    rank on this card through gloo.  Returns (ok, (a)'s launches summed
+    over the ranks, (c)'s)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch.ep_serve import run_resilience_trials
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    cfg = get_config("mixtral-8x7b")
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(EP_SEED)
+    tokens = np.stack([corpus.sample(rng, EP_SEQ) for _ in range(EP_BATCH)]
+                      ).astype(np.int32)
+    print(f"ep: {cfg.name} at published widths, {EP_LAYERS} layers, "
+          f"bfloat16, B={EP_BATCH} S={EP_SEQ} on a (1, {EP_TP}) mesh of "
+          f"gloo ranks sharing the card (buckets staged through host "
+          "memory)", flush=True)
+    ranks = run_ranks(ep_rank, EP_TP, backend="gloo", device="cuda",
+                      timeout_s=EP_TIMEOUT_S, args=(tokens,))
+    t_a = time.perf_counter() - t0
+    counts = {k: sum(r["launches"][k] for r in ranks)
+              for k in ranks[0]["launches"]}
+    ok = all(all(r["checks"].values()) for r in ranks)
+    ok = ok and len({r["logits_sha1"] for r in ranks}) == 1
+    r0 = ranks[0]
+    for r in ranks:
+        print(f"ep (a) rank {r['rank']}: ep_cx per layer {r['ep_cx']} "
+              f"(C={r['C']}), dropped {r['dropped']}, prefill "
+              f"{r['prefill_s']:.2f} s, peak {r['peak_gb']:.2f} GB, "
+              f"{r['seconds']:.1f} s | checks "
+              + " ".join(f"{k}={'pass' if v else 'FAIL'}"
+                         for k, v in r["checks"].items()), flush=True)
+    print(f"ep (a): logits against the single-process port (K2 ragged, "
+          f"launches {json.dumps(r0['ref_launches'])}): rel_err "
+          f"{r0['logits_rel_err']:.3e}; the same logits on every rank: "
+          f"{len({r['logits_sha1'] for r in ranks}) == 1}; at capacity "
+          f"factor 1.25 dropped ragged / dense {r0['dropped_125']}, ep_cx "
+          f"{r0['ep_cx_125']}, rel_err {r0['ragged_dense_rel_err']:.3e}",
+          flush=True)
+    print(f"ep (b): placement against '{r0['fabric']}' "
+          f"{r0['placement']}", flush=True)
+    print(f"ep (a)+(b): kernel launches summed over the ranks "
+          f"{json.dumps(counts)} ({t_a:.1f} s with the spawn)", flush=True)
+    ok = ok and counts["gating"] > 0 and counts["expert_ffn_grouped"] > 0
+    # (c) the reference's three trials at its geometry and faults
+    t1 = time.perf_counter()
+    res = run_resilience_trials(world=EP_TRIALS_WORLD, device="cuda")
+    for tr in res["trials"]:
+        fm, fb = tr["fault_ms_per_step"], tr["fault_pair_bytes_per_step"]
+        print(f"ep (c) {tr['name']}: {tr['ms_per_step']:.2f} ms/step"
+              + (f" | fault window {fm:.2f} ms/step" if fm else "")
+              + (f" | degraded pair {fb / 1e3:.1f} KB/step" if fb else "")
+              + f" | reroutes {tr['reroutes']}", flush=True)
+    trial_counts = {k: sum(w["launches"][k] for w in res["workers"])
+                    for k in counts}
+    peaks = [round((w["peak_bytes"] or 0) / 1e9, 3) for w in res["workers"]]
+    print(f"ep (c): {res['faults']} on {res['tp']} ranks, {res['dtype']}: "
+          "verdicts " + " ".join(f"{k}={'PASS' if v else 'FAIL'}"
+                                 for k, v in res["verdicts"].items())
+          + f"; peak GB per rank {peaks}; launches {json.dumps(trial_counts)} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    ok = (ok and res["ok"] and trial_counts["gating_warp"] > 0
+          and trial_counts["expert_ffn_grouped"] > 0)
+    print(f"ep: phase {time.perf_counter() - t0:.1f} s on {name} | "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok, counts, trial_counts
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -3765,6 +4017,11 @@ def main():
     # -- phase 14: the remaining architectures -------------------------------
     archs_ok, arch_counts = archs_phase(torch, kernels, card)
 
+    # -- phase 16: expert parallelism, once this process has let go of the
+    # card's memory ---------------------------------------------------------
+    free(torch)
+    ep_ok, ep_counts, ep_trial_counts = ep_phase(torch, kernels, card)
+
     out = []
     for r in rows:
         # a row at the offload path's, the wave's, training's, a phase-10
@@ -3773,6 +4030,7 @@ def main():
         path = (off_counts if r["shape"].startswith(("pool", "decode miss"))
                 else wave_counts if tag == "wave"
                 else long_counts if tag == "long"
+                else ep_counts if tag == "ep"
                 else train_counts if tag == "train"
                 else model_counts[tag] if tag in model_counts
                 else arch_counts[tag] if tag in arch_counts
@@ -3795,6 +4053,8 @@ def main():
                     "launches_remat": remat_counts[r["name"]],
                     **{f"launches_{t}": c[r["name"]]
                        for t, c in arch_counts.items()},
+                    "launches_ep": ep_counts[r["name"]],
+                    "launches_ep_trials": ep_trial_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3821,6 +4081,7 @@ def main():
                               ("archs", archs_ok),
                               ("audit", audit_ok),
                               ("remat", remat_ok),
+                              ("ep", ep_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

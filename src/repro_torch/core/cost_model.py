@@ -9,14 +9,20 @@ watchdog read: the hardware profile of the paper's platform
 describes: ``calibrate_cpu`` fits the CPU line from float32 FFN timings on
 the host, ``calibrate_link`` fits the link constants from timed copies of
 expert-sized pinned host buffers to the card (``fit_link_constants``
-rejects a degenerate fit).  Link topologies between devices come with
-expert parallelism (ROADMAP.md queue 1, "Expert parallelism").
+rejects a degenerate fit).  Expert parallelism prices the links between
+devices per ordered pair: ``LinkTopology`` (homogeneous, island
+hierarchies, directed degradation, each device's connectivity),
+``parse_topology`` (the ``--topology`` grammar), ``fit_topology`` /
+``calibrate_links`` (per-pair refits from timed copies between torch
+devices) and ``CostModel.with_topology`` / ``for_link`` /
+``trans_time_for``.
 
 All times are in seconds; workloads ``w`` are token counts per expert.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from dataclasses import dataclass
 
@@ -56,6 +62,249 @@ LOCAL_PC = HardwareProfile(
 # the reference's other profile, a TPU host's (``TPU_V5E_HOST``), describes
 # no machine the port runs on and is not carried
 PROFILES = {p.name: p for p in (LOCAL_PC,)}
+
+
+class TopologyParseError(ValueError):
+    """Malformed ``--topology`` spec (typed so callers can catch it)."""
+
+
+@dataclass
+class LinkTopology:
+    """Per-ordered-pair link constants for an n-device fabric.
+
+    ``gbps[i, j]`` / ``latency_s[i, j]`` describe the directed link
+    i -> j; the diagonal is unused (a device never ships to itself).
+    ``rejected[i, j]`` records pairs whose calibration fit was
+    degenerate and kept the prior constants (mirrors
+    ``CostModel.link_fit_rejected`` per link).  Hierarchical fabrics
+    (NVLink island + inter-host PCIe/NIC) come from
+    :meth:`hierarchical`; a measured topology from
+    :func:`calibrate_links`; a fault-degraded view from
+    :meth:`degrade`.
+    """
+
+    gbps: np.ndarray
+    latency_s: np.ndarray
+    rejected: np.ndarray
+    name: str = "flat"
+
+    @property
+    def n(self) -> int:
+        return int(self.gbps.shape[0])
+
+    @classmethod
+    def homogeneous(cls, n: int, gbps: float, latency_s: float,
+                    name: str = "flat") -> "LinkTopology":
+        return cls(gbps=np.full((n, n), float(gbps)),
+                   latency_s=np.full((n, n), float(latency_s)),
+                   rejected=np.zeros((n, n), bool), name=name)
+
+    @classmethod
+    def hierarchical(cls, n: int, island: int, *,
+                     intra_gbps: float, inter_gbps: float,
+                     intra_latency_s: float,
+                     inter_latency_s: float) -> "LinkTopology":
+        """Islands of ``island`` devices with fast intra-island links
+        (NVLink-class) and slower inter-island links (PCIe/NIC-class)."""
+        if island <= 0 or n % island:
+            raise TopologyParseError(
+                f"island size {island} must divide n_devices {n}")
+        isl = np.arange(n) // island
+        same = isl[:, None] == isl[None, :]
+        t = cls.homogeneous(n, inter_gbps, inter_latency_s,
+                            name=f"island:{island}")
+        t.gbps[same] = float(intra_gbps)
+        t.latency_s[same] = float(intra_latency_s)
+        return t
+
+    def pair(self, src: int, dst: int):
+        """(gbps, latency_s) of the directed link src -> dst."""
+        return float(self.gbps[src, dst]), float(self.latency_s[src, dst])
+
+    def pairs(self):
+        """All ordered (src, dst) pairs, src != dst."""
+        n = self.n
+        return [(i, j) for i in range(n) for j in range(n) if i != j]
+
+    def pair_time(self, src: int, dst: int, nbytes) -> float:
+        """Directed transfer time (Eq. 6 per link); 0 for src == dst."""
+        if src == dst:
+            return 0.0
+        g, lat = self.pair(src, dst)
+        return lat + float(nbytes) / (g * 1e9)
+
+    def with_pair(self, src: int, dst: int, gbps: float, latency_s: float,
+                  rejected: bool = False) -> "LinkTopology":
+        t = self.copy()
+        t.gbps[src, dst] = float(gbps)
+        t.latency_s[src, dst] = float(latency_s)
+        t.rejected[src, dst] = bool(rejected)
+        return t
+
+    def degrade(self, src: int, dst: int, factor: float) -> "LinkTopology":
+        """Directed slowdown by ``factor`` (bandwidth /x, latency *x)."""
+        g, lat = self.pair(src, dst)
+        return self.with_pair(src, dst, g / float(factor),
+                              lat * float(factor))
+
+    def copy(self) -> "LinkTopology":
+        return LinkTopology(gbps=self.gbps.copy(),
+                            latency_s=self.latency_s.copy(),
+                            rejected=self.rejected.copy(), name=self.name)
+
+    def device_quality(self) -> np.ndarray:
+        """Per-device connectivity score: sum over peers of the
+        bidirectional bottleneck bandwidth min(gbps[k, j], gbps[j, k]).
+        A degraded link drags BOTH endpoints down, which is what the
+        greedy placement ranks against (models/moe_ep.solve_placement)."""
+        n = self.n
+        bidir = np.minimum(self.gbps, self.gbps.T)
+        off = ~np.eye(n, dtype=bool)
+        return np.where(off, bidir, 0.0).sum(axis=1)
+
+    def is_uniform(self, rtol: float = 1e-6) -> bool:
+        q = self.device_quality()
+        return bool(np.ptp(q) <= rtol * max(float(np.abs(q).max()), 1e-12))
+
+
+_TOPO_PAIR_RE = re.compile(
+    r"^(\d+)>(\d+):(?:x([0-9.]+)|g([0-9.]+)(?::l([0-9.]+))?)$")
+
+
+def parse_topology(spec, n_devices: int,
+                   profile: HardwareProfile = LOCAL_PC) -> LinkTopology:
+    """Parse a ``--topology`` spec string into a :class:`LinkTopology`.
+
+    Grammar (comma-separated; first item is the base, rest are
+    per-directed-pair overrides)::
+
+        base      := "flat" | "island:K"
+        override  := SRC>DST:xFACTOR        (slow the pair down by xFACTOR)
+                   | SRC>DST:gGBPS[:lLAT_US] (set constants directly)
+
+    e.g. ``island:4,0>5:x8`` — two 4-device islands with the directed
+    0->5 link 8x slower.  ``None``/empty -> homogeneous at the hardware
+    profile's link constants.  Already-built topologies pass through.
+    Malformed specs raise :class:`TopologyParseError`.
+    """
+    if spec is None or isinstance(spec, LinkTopology):
+        return spec if spec is not None else LinkTopology.homogeneous(
+            n_devices, profile.link_gbps, profile.link_latency_s)
+    items = [s.strip() for s in str(spec).split(",") if s.strip()]
+    if not items:
+        return LinkTopology.homogeneous(
+            n_devices, profile.link_gbps, profile.link_latency_s)
+    base, overrides = items[0], items[1:]
+    if base == "flat":
+        topo = LinkTopology.homogeneous(
+            n_devices, profile.link_gbps, profile.link_latency_s)
+    elif base.startswith("island:"):
+        try:
+            k = int(base.split(":", 1)[1])
+        except ValueError as e:
+            raise TopologyParseError(f"bad island size in {base!r}") from e
+        # intra-island: NVLink-class (8x the profile link, 1/4 latency)
+        topo = LinkTopology.hierarchical(
+            n_devices, k,
+            intra_gbps=8 * profile.link_gbps,
+            inter_gbps=profile.link_gbps,
+            intra_latency_s=profile.link_latency_s / 4,
+            inter_latency_s=profile.link_latency_s)
+    elif _TOPO_PAIR_RE.match(base):
+        overrides, topo = items, LinkTopology.homogeneous(
+            n_devices, profile.link_gbps, profile.link_latency_s)
+    else:
+        raise TopologyParseError(
+            f"bad topology base {base!r}: expected 'flat', 'island:K' or "
+            f"a SRC>DST override")
+    for ov in overrides:
+        m = _TOPO_PAIR_RE.match(ov)
+        if m is None:
+            raise TopologyParseError(
+                f"bad topology override {ov!r}: expected "
+                f"'SRC>DST:xFACTOR' or 'SRC>DST:gGBPS[:lLAT_US]'")
+        src, dst = int(m.group(1)), int(m.group(2))
+        if not (0 <= src < n_devices and 0 <= dst < n_devices) \
+                or src == dst:
+            raise TopologyParseError(
+                f"topology override {ov!r}: pair out of range for "
+                f"{n_devices} devices")
+        if m.group(3) is not None:
+            topo = topo.degrade(src, dst, float(m.group(3)))
+        else:
+            g = float(m.group(4))
+            lat = (float(m.group(5)) * 1e-6 if m.group(5) is not None
+                   else topo.pair(src, dst)[1])
+            topo = topo.with_pair(src, dst, g, lat)
+    return topo
+
+
+def fit_topology(prior: LinkTopology, samples: dict) -> LinkTopology:
+    """Pure per-pair refit: ``samples`` maps (src, dst) ->
+    (sizes_bytes, times_s).  Degenerate fits keep the prior pair's
+    constants and are recorded in ``rejected`` (same contract as
+    :func:`fit_link_constants`); unmeasured pairs keep the prior."""
+    topo = prior.copy()
+    for (src, dst), (sizes, times) in samples.items():
+        gbps, lat, rejected = fit_link_constants(sizes, times)
+        if rejected:
+            topo.rejected[src, dst] = True
+        else:
+            topo = topo.with_pair(src, dst, gbps, lat)
+    return topo
+
+
+def measure_pair_times(sizes_bytes, repeats: int = 3, devices=None,
+                       dtype=torch.float32) -> dict:
+    """Time a copy between every ordered pair of torch devices (``cuda:i``
+    to ``cuda:j``) at each buffer size: the transfer a cross-device expert
+    re-route issues.  Each copy is waited on before the clock stops.
+    Returns the :func:`fit_topology` samples dict."""
+    devs = [torch.device(d) for d in (
+        devices if devices is not None
+        else [f"cuda:{i}" for i in range(torch.cuda.device_count())])]
+
+    def sync():
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    samples = {}
+    for i, src in enumerate(devs):
+        for j, dst in enumerate(devs):
+            if i == j:
+                continue
+            ts = []
+            for nb in sizes_bytes:
+                buf = torch.ones(max(1, int(nb) // itemsize), dtype=dtype,
+                                 device=src)
+                buf.to(dst)                                # warm-up
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(repeats):
+                    buf.to(dst)
+                    sync()
+                ts.append((time.perf_counter() - t0) / repeats)
+            samples[(i, j)] = (list(sizes_bytes), ts)
+    return samples
+
+
+def calibrate_links(prior: LinkTopology, *, sizes_bytes=None,
+                    repeats: int = 3, devices=None) -> LinkTopology:
+    """Measured per-pair generalization of ``CostModel.calibrate_link``:
+    fit each ordered pair's (gbps, latency) from timed device-to-device
+    copies (:func:`measure_pair_times`), keeping the prior (and recording
+    the rejection) wherever the fit is degenerate.  With fewer than two
+    devices there is no pair to time and the prior comes back (a copy)."""
+    devs = list(devices if devices is not None
+                else [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    if len(devs) < 2:
+        return prior.copy()
+    if sizes_bytes is None:
+        sizes_bytes = (1 << 16, 1 << 18, 1 << 20)
+    return fit_topology(prior, measure_pair_times(
+        sizes_bytes, repeats=repeats, devices=devs))
 
 
 def fit_link_constants(sizes_bytes, times_s,
@@ -102,6 +351,9 @@ class CostModel:
     # True when calibrate_link measured a degenerate fit and fell back to
     # the hardware profile's constants
     link_fit_rejected: bool = False
+    # per-ordered-pair fabric constants (calibrate_links / parse_topology);
+    # None = the single homogeneous host link above
+    topology: "LinkTopology | None" = None
 
     @classmethod
     def for_config(cls, cfg: ModelConfig,
@@ -130,6 +382,29 @@ class CostModel:
 
     def expert_flops(self, w) -> np.ndarray:
         return 6.0 * np.asarray(w, np.float64) * self.d_model * self.d_expert
+
+    def trans_time_for(self, src: int, dst: int) -> float:
+        """Per-link Eq. 6: one expert's weights over the directed fabric
+        link src -> dst (0 when src == dst; falls back to the scalar
+        ``trans_time`` when no topology is attached)."""
+        if self.topology is None:
+            return 0.0 if src == dst else self.trans_time
+        return self.topology.pair_time(src, dst, self.expert_bytes)
+
+    def for_link(self, src: int, dst: int) -> "CostModel":
+        """A CostModel whose scalar link constants are the topology's
+        (src, dst) pair — so ``DaliConfig.from_cost_model`` (and anything
+        else consuming ``trans_time``) prices THAT link instead of the
+        homogeneous one."""
+        if self.topology is None:
+            return self
+        g, lat = self.topology.pair(src, dst)
+        return dataclasses.replace(
+            self, link_gbps=g, link_latency_s=lat,
+            link_fit_rejected=bool(self.topology.rejected[src, dst]))
+
+    def with_topology(self, topology: "LinkTopology") -> "CostModel":
+        return dataclasses.replace(self, topology=topology)
 
     def t_cpu(self, w) -> np.ndarray:
         """Eq. 4 term: CPU execution time for workload w (0 if w == 0).

@@ -113,6 +113,14 @@ def main(argv=None):
                          "corrupt_rows (a bare kind takes its preset), e.g. "
                          "'link_degrade:x12@8-26,read_error@30'; needs a "
                          "physical --offload")
+    ap.add_argument("--topology", default=None,
+                    help="per-link fabric spec "
+                         "(core/cost_model.parse_topology): 'flat', "
+                         "'island:K' (K-device NVLink-style islands), "
+                         "plus comma-separated 'SRC>DST:xF' slow-link or "
+                         "'SRC>DST:gGBPS[:lLAT]' absolute overrides, "
+                         "e.g. 'island:4,0>3:x8'; attaches per-link "
+                         "constants to the offload cost model")
     ap.add_argument("--check-exact", action="store_true",
                     help="re-serve without faults (with --faults) or "
                          "full-resident (modeled) and exit non-zero unless "
@@ -183,7 +191,8 @@ def main(argv=None):
         return ServeSpec(cfg=cfg, server=args.server, policy=policy,
                          dali_cfg=dali_cfg, batch_size=args.batch,
                          max_len=args.prompt_len + args.max_new + 2,
-                         offload=OffloadSpec(mode=offload, faults=faults),
+                         offload=OffloadSpec(mode=offload, faults=faults,
+                                             topology=args.topology),
                          device=dev).resolve(params)
 
     rs = resolve(args.offload, args.faults)

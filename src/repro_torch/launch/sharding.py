@@ -1,14 +1,45 @@
-"""Parameter count of a model configuration (port of
-``repro/launch/sharding.py::estimate_params``).
+"""Expert-parallel rules and the parameter count of a model configuration
+(port of parts of ``repro/launch/sharding.py``).
+
+``rules(mesh, wmode)`` activates a mesh (``launch/mesh.py::make_mesh``)
+for the code inside it: there ``models/moe.py::apply_moe`` takes the
+expert-parallel path (``models/moe_ep.py``) wherever ``ep_applicable``
+holds.  ``wmode`` is "tp" (expert stacks over 'model', replicated over
+'data') or "fsdp" (their f dim also over 'data', gathered in the layer).
+Outside a rules context every call runs on one device.  The reference's
+logical-axis map has no meaning without GSPMD, so ``rules`` takes none.
 
 The rest of the reference module lays parameters and activations out on a
-TPU mesh for GSPMD (logical axis rules, ``hint``, the auto-sharding
-plan); its torch counterpart is part of "XLA-bound tooling" (ROADMAP.md
-queue 1) and is not ported.
+TPU mesh for GSPMD (``logical_map_for``, ``fit_spec``, ``hint``,
+``param_pspecs``, ``weights_need_fsdp``, ``cache_pspecs``,
+``batch_pspec``); it waits for ROADMAP.md item 25.
 """
 from __future__ import annotations
 
+import contextlib
+
 from repro_torch.models.config import ModelConfig, layer_pattern
+
+WMODES = ("tp", "fsdp")
+_ACTIVE: dict = {"mesh": None, "wmode": "tp"}
+
+
+@contextlib.contextmanager
+def rules(mesh, wmode: str = "tp"):
+    """Activate ``mesh`` and the expert weight mode inside the block."""
+    if wmode not in WMODES:
+        raise ValueError(f"wmode must be one of {WMODES}, got {wmode!r}")
+    prev = dict(_ACTIVE)
+    _ACTIVE["mesh"] = mesh
+    _ACTIVE["wmode"] = wmode
+    try:
+        yield
+    finally:
+        _ACTIVE.update(prev)
+
+
+def active():
+    return _ACTIVE
 
 
 def estimate_params(cfg: ModelConfig) -> float:

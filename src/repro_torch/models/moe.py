@@ -1,5 +1,5 @@
-"""Mixture-of-Experts layer (port of ``repro/models/moe.py`` without the
-expert-parallel path).
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``; its
+expert-parallel path is ``models/moe_ep.py``).
 
 Routing runs the fused router kernel K1; the expert FFN runs kernel K2 on
 one of two paths, chosen statically from shapes as in the reference
@@ -456,10 +456,21 @@ def _apply_moe_chunked(params, x, cfg: ModelConfig, chunk: int, *,
 def apply_moe(params, x, cfg: ModelConfig, *,
               capacity: Optional[int] = None, valid=None,
               force_path: Optional[str] = None,
+              force_exchange: Optional[str] = None,
+              count_overlap: Optional[bool] = None,
+              placement=None, demand_view: bool = False,
               slots=None, slot_fetch=None, slot_live=None,
               slot_phase: str = "decode"):
     """Returns (y, info) with DALI's routing observables (reference
-    ``apply_moe`` without EP).
+    ``apply_moe``).
+
+    Under active expert-parallel rules (``launch/sharding.py::rules``) a
+    full-resident call without ``force_path`` or ``valid`` takes the EP
+    path wherever ``moe_ep.ep_applicable`` holds (``models/moe_ep.py``);
+    ``force_exchange``, ``count_overlap``, ``placement`` and
+    ``demand_view`` are that path's controls, and the last two raise off
+    it.  Decode-sized steps, single-rank runs and the slot-pool path keep
+    the paths below.
 
     ``valid`` (T,) bool marks real tokens (None: all real): invalid tokens
     take no capacity slot, count toward no workload or aux loss, fetch no
@@ -479,9 +490,20 @@ def apply_moe(params, x, cfg: ModelConfig, *,
     if force_path not in (None, "dense", "sparse"):
         raise ValueError(f"force_path must be None|'dense'|'sparse', "
                          f"got {force_path!r}")
+    from .moe_ep import apply_moe_ep, ep_applicable
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
+    if (slots is None and force_path is None and valid is None
+            and ep_applicable(cfg, B, S)):
+        return apply_moe_ep(params, x, cfg, capacity=capacity,
+                            force_exchange=force_exchange,
+                            count_overlap=count_overlap,
+                            placement=placement, demand_view=demand_view)
+    if placement is not None or demand_view:
+        raise ValueError("placement / demand_view are expert-parallel "
+                         "re-route controls (models/moe_ep.py) and "
+                         "require the EP path to be applicable")
     chunk = MOE_CHUNK_TOKENS
     if slots is not None and T > chunk and slot_phase != "prefill":
         raise ValueError("the slot-pool path serves decode-sized steps; "

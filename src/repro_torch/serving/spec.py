@@ -9,9 +9,9 @@ overlap, pipelined), strips the routed expert stacks from the served
 params, and returns a ``ResolvedServe`` whose factories build the step
 functions (``resilient_decode`` follows the store's degradation ladder),
 the serve state and the server.  ``OffloadSpec.faults`` arms the store's
-fault injection, link watchdog and ladder; ``topology`` prices links
-between devices and comes with expert parallelism, so it raises
-``NotImplementedError``.
+fault injection, link watchdog and ladder; ``topology`` attaches the
+per-link fabric (``core/cost_model.py::parse_topology``) to the store's
+cost model.
 
 The legacy kwarg surfaces (``scheduler.make_store``, ``make_decode_step``
 and ``init_serve_state`` with ``offload=``, the servers built from
@@ -31,11 +31,6 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves
 
 OFFLOAD_MODES = ("modeled", "blocking", "overlap", "pipelined")
-
-TOPOLOGY_UNPORTED = (
-    "OffloadSpec(topology=...) prices the links between devices; it is "
-    "ported with expert parallelism (ROADMAP.md queue 1, \"Expert "
-    "parallelism\")")
 
 # the offload <-> policy contract, in the reference's words
 OFFLOAD_POLICY_ERROR = (
@@ -99,8 +94,10 @@ class OffloadSpec:
                     ladder (physical modes only)
     cost_model    — the CostModel whose link constants budget the watchdog
                     (default: the config's, LOCAL_PC's link)
-    topology      — per-link constants between devices: raises
-                    ``NotImplementedError`` (expert parallelism)
+    topology      — per-link fabric spec (core/cost_model.parse_topology:
+                    "flat", "island:K", "SRC>DST:xF" overrides) attached
+                    to the store's cost model (physical modes; one device
+                    per card, one on the CPU)
     """
     mode: str = "modeled"
     fallback: str = "fetch"
@@ -173,8 +170,6 @@ def build_store(offload: str, params, cfg, policy, fallback: str = "fetch",
     if offload not in OFFLOAD_MODES:
         raise ValueError(f"offload must be one of "
                          f"{'|'.join(OFFLOAD_MODES)}, got {offload!r}")
-    if topology is not None:
-        raise NotImplementedError(TOPOLOGY_UNPORTED)
     if offload == "modeled":
         if faults is not None:
             raise ValueError('faults need a physical offload mode '
@@ -183,6 +178,18 @@ def build_store(offload: str, params, cfg, policy, fallback: str = "fetch",
                              'into')
         return None
     require_offload_policy(policy, cfg)
+    if topology is not None:
+        # attach the per-link fabric to the store's cost model, so anything
+        # reading CostModel.for_link prices each directed pair, not one
+        # homogeneous link (DESIGN.md §13); the devices are the cards (one
+        # device on the CPU, as the reference's single-device runs)
+        import torch
+        from repro_torch.core.cost_model import CostModel, parse_topology
+        dev = resolve_device(device if device is not None else "cuda")
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        cm = cost_model if cost_model is not None \
+            else CostModel.for_config(cfg)
+        cost_model = cm.with_topology(parse_topology(topology, n))
     dcfg = policy.dcfg
     moves = max(2, dcfg.prefetch_size + dcfg.u_size)
     return ExpertStore(

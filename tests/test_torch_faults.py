@@ -681,7 +681,20 @@ def test_server_transient_faults_identical_outputs(model, server):
     assert faulted == clean
 
 
-def test_spec_faults_topology_and_modeled_contract(model):
+def _recorded_cost_models(monkeypatch, store_mod):
+    """The ``cost_model`` each ExpertStore of ``store_mod`` is built with."""
+    seen = []
+
+    class Recording(store_mod.ExpertStore):
+        def __init__(self, *args, cost_model=None, **kw):
+            seen.append(cost_model)
+            super().__init__(*args, cost_model=cost_model, **kw)
+
+    monkeypatch.setattr(store_mod, "ExpertStore", Recording)
+    return seen
+
+
+def test_spec_faults_topology_and_modeled_contract(model, monkeypatch):
     jc, tc, jp, tp = model
     jpol = jspec.ServeSpec(cfg=jc, policy="dali").resolve(jp).policy
     with pytest.raises(ValueError) as ref:
@@ -691,11 +704,27 @@ def test_spec_faults_topology_and_modeled_contract(model):
                         offload=tspec.OffloadSpec(
                             faults="transient_stall")).resolve(tp)
     assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="Expert parallelism"):
+    # topology: the store's cost model carries the parsed fabric, as the
+    # reference's does (one device on the CPU)
+    t_seen = _recorded_cost_models(monkeypatch, tstore)
+    j_seen = _recorded_cost_models(monkeypatch, jstore)
+    tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
+                    offload=tspec.OffloadSpec(mode="overlap",
+                                              topology="flat")).resolve(tp)
+    jspec.build_store("overlap", jp, jc, jpol, topology="flat")
+    t_topo, j_topo = t_seen[0].topology, j_seen[0].topology
+    assert t_topo.n == j_topo.n == 1 and t_topo.name == j_topo.name
+    for k in ("gbps", "latency_s", "rejected"):
+        np.testing.assert_array_equal(getattr(t_topo, k), getattr(j_topo, k))
+    assert t_seen[0].trans_time == pytest.approx(j_seen[0].trans_time)
+    with pytest.raises(tcost.TopologyParseError):
         tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
-                        offload=tspec.OffloadSpec(mode="overlap",
-                                                  topology="flat")
+                        offload=tspec.OffloadSpec(
+                            mode="overlap", topology="flat,0>1:x8")
                         ).resolve(tp)
+    with pytest.raises(jcost.TopologyParseError):
+        jspec.build_store("overlap", jp, jc, jpol, topology="flat,0>1:x8")
+    monkeypatch.undo()
     cm = tcost.CostModel.for_config(tc)
     cm = dataclasses.replace(cm, link_gbps=3.0, link_latency_s=1e-4)
     rs = tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",

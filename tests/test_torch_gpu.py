@@ -1000,3 +1000,35 @@ def test_jamba_offloaded_wave_on_the_card_equals_full_resident(cuda):
         assert kernels.LAUNCHES["gating"] > 0
         assert kernels.LAUNCHES["flash_attention"] > 0
     assert outs["pipelined"] == outs["modeled"]
+
+
+@pytest.mark.parametrize("ragged", [True, False])
+def test_expert_ffn_at_the_ep_group_layout_matches_plain(cuda, ragged):
+    """K4 as the expert-parallel layer calls it (models/moe_ep.py::
+    _ep_expert_ffn): E/tp weight sets, one group per (expert, source),
+    group e * tp + src, the exchanged (tp, E/tp) counts (the dense
+    exchange counts every row)."""
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.models.moe_ep import _ep_expert_ffn
+    E_loc, tp, C, d, f = 2, 4, 80, 128, 256
+    cfg = ModelConfig(d_model=d, d_ff=f, moe=MoEConfig(n_routed=E_loc * tp,
+                                                       top_k=2, d_expert=f))
+    xa, wg, wu, wd = _ffn_inputs(cuda, E_loc * tp, E_loc, C, d, f, seed=7)
+    xa = xa.reshape(E_loc, tp, C, d)
+    cnt = (torch.tensor([[0, 80], [13, 1], [64, 65], [79, 0]],
+                        dtype=torch.int32, device=cuda) if ragged else None)
+    before = kernels.LAUNCHES["expert_ffn_grouped"]
+    y = _ep_expert_ffn(xa, wg, wu, wd, cnt, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expert_ffn_grouped"] == before + 1
+    gcnt = (cnt.t().reshape(-1) if ragged
+            else torch.full((E_loc * tp,), C, dtype=torch.int32,
+                            device=cuda))
+    eids = torch.arange(E_loc, dtype=torch.int32,
+                        device=cuda).repeat_interleave(tp)
+    r = expert_ffn_plain(xa.reshape(E_loc * tp, C, d), wg, wu, wd,
+                         counts=gcnt, expert_ids=eids).reshape(y.shape)
+    assert _rel_err(y, r) < BF16_TOL
+    rows = (torch.arange(C, device=cuda)[None, :]
+            >= gcnt[:, None]).reshape(E_loc, tp, C)
+    assert not y[rows].float().abs().sum()

@@ -16,9 +16,10 @@ policy state carried over with ``repro_torch.bridge``).
   row counters equal the JAX store's;
 * the contract errors: ``policy="none"`` raises the reference's message,
   ``faults`` on ``"modeled"`` the reference's ``ValueError``, and
-  ``topology`` (links between devices) ``NotImplementedError`` naming
-  expert parallelism; ``faults`` and ``fallback="little"`` resolve and
-  serve in every physical mode (their scenarios: test_torch_faults.py).
+  ``topology`` (links between devices) resolves with the fabric on the
+  store's cost model and serves the same tokens; ``faults`` and
+  ``fallback="little"`` resolve and serve in every physical mode (their
+  scenarios: test_torch_faults.py).
 """
 import dataclasses
 
@@ -378,11 +379,20 @@ def test_offload_spec_contract_errors(model):
                         offload=tspec.OffloadSpec(faults="read_error")
                         ).resolve(tp)
     assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="Expert parallelism"):
-        tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
-                        offload=tspec.OffloadSpec(mode="overlap",
-                                                  topology="flat")
-                        ).resolve(tp)
+    # a topology prices the links between devices; on one device it
+    # changes nothing the store serves
+    tokens = []
+    for topology in (None, "flat"):
+        rs = tspec.ServeSpec(cfg=tc, policy="dali", device="cpu",
+                             batch_size=2, max_len=MAX_LEN, eos_id=NO_EOS,
+                             offload=tspec.OffloadSpec(mode="overlap",
+                                                       topology=topology)
+                             ).resolve(tp)
+        srv = rs.server()
+        for r in _requests(tsched, tc.vocab)[:2]:
+            srv.submit(r)
+        tokens.append({r.rid: list(r.output) for r in srv.run()})
+    assert tokens[0] == tokens[1]
     # the fault seam and the little tier resolve and serve in every mode
     for mode in MODES:
         for off in (tspec.OffloadSpec(mode=mode, faults="read_error@0-3"),

@@ -388,11 +388,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(model):
 
 def test_unported_options_raise_not_implemented(model):
     _, tc, _, tp = model
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, \"Expert parallelism\""):
+    # the link topology is ported with expert parallelism: it resolves,
+    # and a malformed spec raises the typed parse error
+    rs = tspec.ServeSpec(cfg=tc, device="cpu", policy="dali",
+                         offload=tspec.OffloadSpec(mode="pipelined",
+                                                   topology="island:1")
+                         ).resolve(tp)
+    assert rs.store is not None
+    with pytest.raises(ValueError, match="bad topology base"):
         tspec.ServeSpec(cfg=tc, device="cpu", policy="dali",
                         offload=tspec.OffloadSpec(mode="pipelined",
-                                                  topology="flat")
+                                                  topology="mesh")
                         ).resolve(tp)
     # the little tier is ported: it resolves with its int8 twins built
     rs = tspec.ServeSpec(cfg=tc, device="cpu", policy="dali",
