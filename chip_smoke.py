@@ -29,8 +29,10 @@ outside a checkout.  Phases (any failure exits non-zero):
    pool): at 8 layers the batch-2 requests of phase 5 in the blocking,
    overlap and pipelined modes with the fetch tier must give phase 5's
    tokens, and the host tier's first-step logits must be within 3e-2; then
-   Mixtral-8x7B as deep as the host can pin (all 32 layers where it can),
-   served pipelined at two cache ratios, must give identical tokens with
+   Mixtral-8x7B as deep as the host can pin, up to ``OFFLOAD_MAX_LAYERS``
+   (12 of its 32: the depth cut that keeps the script inside its time
+   limit), served pipelined at two cache ratios, must give identical
+   tokens with
    peak device memory below the model's weight bytes.  Its launch counts
    are read on their own, like phase 5's;
 7. wave    — ``BatchServer`` (the wave server) with ``dali`` at 8 layers:
@@ -43,7 +45,8 @@ outside a checkout.  Phases (any failure exits non-zero):
    decode (T = 8, the capacity sweep) keeps every row as the offloaded
    decode (the grouped slot path) does.  Unpinned, the full-resident
    decode's C = 4 drops rows and the tokens part, in the JAX package too;
-8. policies — phase 5's batch-2 requests at 8 layers, offloaded
+8. policies — the first ``POLICY_REQUESTS`` (2) of phase 5's batch-2
+   requests at 8 layers (cut from 4 for the time limit), offloaded
    (``pipelined``, fetch tier, cache ratio 0.25) through the continuous
    server under each of ``static``, ``all_gpu``, ``lru``, ``score``,
    ``statistical`` and ``random``: every policy must give phase 5's
@@ -132,9 +135,10 @@ outside a checkout.  Phases (any failure exits non-zero):
    last two), every gradient leaf within 3e-2 of the CPU's or, where
    bfloat16 cannot resolve the leaf, no farther from the float32 step
    than the farthest of three bfloat16 steps without the kernels or on
-   the CPU plus 3e-2 (``train_parity``); (b) Jamba-1.5-Large at published widths, one pattern period (8
-   layers: 7 Mamba + 1 attention, 4 MoE; 5 where the host cannot pin 8
-   layers' 77.3 GB of experts), the routed stacks drawn into the pinned
+   the CPU plus 3e-2 (``train_parity``); (b) Jamba-1.5-Large at published widths, the shortest prefix of
+   its pattern period with the attention layer and 2 MoE layers (5
+   layers, 38.7 GB of experts; cut from the whole 8-layer period, 77.3
+   GB, for the time limit), the routed stacks drawn into the pinned
    host store, residual vectors calibrated through the slot pool, then 4
    ``MarkovCorpus`` requests x 8 tokens at batch 2 through ``BatchServer``
    with ``dali``, pipelined, fetch tier, at cache ratio 0.25 and a second
@@ -186,7 +190,29 @@ outside a checkout.  Phases (any failure exits non-zero):
    reference's geometry and faults: all five verdicts.  The ranks' K1
    and K4 launches (counts zeroed just before (a)'s prefill, read just
    after) go into the ``kernels`` line; each rank's peak memory and
-   ``ep_cx`` and the phase's seconds are printed.
+   ``ep_cx`` and the phase's seconds are printed;
+17. layout — the GSPMD layout on DTensor (``launch/{sharding,layout,
+   collectives}.py``), after phase 16: (a) Mixtral-8x7B at published
+   widths, 2 layers, bfloat16, weights from seed 0 on 4 gloo ranks of a
+   (2, 2) mesh sharing the card (their DTensor collectives staged through
+   host memory by ``HostWire``); under ``tp`` and ``fsdp`` the B = 4 x S
+   = 512 prefill (``prefill_32k``'s map; under ``tp`` the forward's logits
+   too), greedy decode steps over a cache whose sequence lies over 'model'
+   (``decode_32k``'s; 8 under ``tp``, 1 under ``fsdp``, whose every step
+   gathers every weight through host memory: cut for the time limit), the
+   gradients of a training step at B = 4 x 128 (``train_4k``'s), each
+   against the single-process
+   port on the same card: logits rows within 3e-2 where the token's
+   experts are the single process's (at most 1 % of tokens differ: bf16
+   near-ties), greedy tokens equal up to a tie, the gradients within 3e-2
+   of the single process's step on the laid-out step's routing; K1, K2
+   ragged and K3 launched in every rank (counts zeroed just before, read
+   just after; the reference's launches excluded); (b) the fake process
+   group's ``meta`` run of the same steps counts the same collectives,
+   kind for kind and byte for byte; (c) the dry run of Mixtral-8x7B
+   decode_32k on the production mesh (``pod``, ``multi-pod``): per-card
+   peak, weight mode, collective bytes by axis, the three roofline terms
+   (data-sheet predictions).
 
 Phase 3 also times K3 and K2 ragged at phase 7's wave shapes, K1, K3
 and K2 ragged at phase 9's training shapes (T = 1024 rows; B = 8 x
@@ -256,6 +282,7 @@ WAVE_BATCH, WAVE_NEW, WAVE_SEED, MAX_LEN = 8, 32, 9, 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 128, 3, 2
 SMOKE_STEPS = 120
 POLICIES = ("static", "all_gpu", "lru", "score", "statistical", "random")
+POLICY_REQUESTS = 2
 # phase 10: the paper's other two evaluation models (tag, arch)
 NEW_MODELS = (("qwen3", "qwen3-30b-a3b"), ("deepseek", "deepseek-v2-lite-16b"))
 # phase 12: two prompts of 20000 tokens, each admitted as one B = 1 prefill
@@ -1179,6 +1206,9 @@ def print_groups(groups, busy):
 
 MODES = ("blocking", "overlap", "pipelined")
 HOST_RESERVE = 8 * 2**30     # host bytes left unpinned at full depth
+# phase 6 (b)'s depth: 12 of Mixtral's 32 layers (33.7 GB of experts
+# pinned), cut so that the whole script stays inside its time limit
+OFFLOAD_MAX_LAYERS = 12
 
 
 def mem_available():
@@ -1357,7 +1387,8 @@ def offload_phase(torch, kernels, name, ctx):
     full = get_config("mixtral-8x7b")
     m = full.moe
     layer_bytes = m.n_routed * 3 * full.d_model * m.d_expert * 2
-    depth = min(full.n_layers, int((avail - HOST_RESERVE) // layer_bytes))
+    depth = min(full.n_layers, OFFLOAD_MAX_LAYERS,
+                int((avail - HOST_RESERVE) // layer_bytes))
     print(f"offload: MemAvailable {avail / 2**30:.1f} GiB, "
           f"{layer_bytes / 1e9:.2f} GB of experts per layer -> depth "
           f"{depth} of {full.n_layers}", flush=True)
@@ -1590,6 +1621,9 @@ def policy_phase(torch, kernels, name, hold, batch2, res_vecs):
     t_phase = time.perf_counter()
     cfg, host, dcfg = hold
     ok = True
+    # one batch of phase 5's batch-2 requests a policy (cut from both for
+    # the script's time limit)
+    batch2 = batch2[:POLICY_REQUESTS]
     kernels.reset_launch_counts()          # the policies' path starts here
     for pol in POLICIES:
         spec = ServeSpec(cfg=cfg, policy=pol, dali_cfg=dcfg, batch_size=2,
@@ -2931,9 +2965,10 @@ ARCH_NEW = (("seamless", "seamless-m4t-large-v2"), ("llama3", "llama3-405b"),
 ARCH_TRAIN = ("olmo-1b", "mamba2-780m", "jamba-1.5-large-398b", "gemma2-9b",
               "llama-3.2-vision-11b", "seamless-m4t-large-v2")
 TRAIN_SEEDS = (1, 2)         # (a)'s training steps: params and batch seeds
-# (b): one Jamba pattern period (7 Mamba + 1 attention layers, 4 MoE); 5
-# layers (attention at offset 4, 2 MoE) where the host cannot pin 8
-JAMBA_LAYERS, JAMBA_SHORT = 8, 5
+# (b): the shortest prefix of Jamba's 8-layer period with its attention
+# layer and 2 MoE layers (38.7 GB of experts pinned), the depth cut from
+# the whole period (8 layers) that keeps the script inside its time limit
+JAMBA_LAYERS = 5
 JAMBA_REQUESTS, JAMBA_NEW, JAMBA_SEED = 4, 8, 14
 GEMMA_LONG = 5000            # (c): a prompt past Gemma-2's 4096 window
 GEMMA_SHORT = 4000           # (c): one that stays inside it
@@ -3119,24 +3154,19 @@ def jamba_phase(torch, kernels, name):
         n_layers=n)) if k == "moe")
     avail, waited = settled_mem_available(torch)
     need = n_moe(JAMBA_LAYERS) * m.n_routed * expert_b
-    layers = JAMBA_LAYERS if need + HOST_RESERVE < avail else JAMBA_SHORT
-    cfg = full.replace(n_layers=layers)
+    cfg = full.replace(n_layers=JAMBA_LAYERS)
     pat = layer_pattern(cfg)
     print(f"archs (b): {cfg.name} at published widths (d_model "
           f"{cfg.d_model}, {m.n_routed} experts top-{m.top_k} of d_ff "
           f"{m.d_expert} on every other layer, Mamba-2/SSD d_state "
           f"{cfg.mamba.d_state} head_dim {cfg.mamba.head_dim}, "
           f"{cfg.attn.n_heads}q/{cfg.attn.n_kv_heads}kv heads, vocab "
-          f"{cfg.vocab}); depth cut from {full.n_layers} to {layers} "
+          f"{cfg.vocab}); depth cut from {full.n_layers} to {JAMBA_LAYERS} "
           f"layers: {sum(x == 'mamba' for x, _ in pat)} Mamba + "
           f"{sum(x == 'attn' for x, _ in pat)} attention, "
           f"{sum(k == 'moe' for _, k in pat)} MoE; host MemAvailable "
           f"{avail / 1e9:.1f} GB (settled in {waited:.0f} s), "
-          f"{need / 1e9:.1f} GB of experts at {JAMBA_LAYERS} layers"
-          + ("" if layers == JAMBA_LAYERS else
-             f" do not fit beside {HOST_RESERVE / 2**30:.0f} GiB: "
-             f"{layers} layers instead, the shortest prefix with the "
-             "attention layer and 2 MoE layers"), flush=True)
+          f"{need / 1e9:.1f} GB of experts pinned", flush=True)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda", experts="host")
     torch.cuda.synchronize()
@@ -3194,8 +3224,8 @@ def jamba_phase(torch, kernels, name):
         nbytes = streamed * server.store.expert_bytes
         ok = ok and len(done) == JAMBA_REQUESTS and all(
             len(r.output) == JAMBA_NEW for r in done)
-        print(f"archs (b) {cfg.name} {layers} layers wave pipelined fetch "
-              f"cache_ratio={ratio} ({server.store.n_slots} of "
+        print(f"archs (b) {cfg.name} {JAMBA_LAYERS} layers wave pipelined "
+              f"fetch cache_ratio={ratio} ({server.store.n_slots} of "
               f"{m.n_routed} slots a layer): {len(done)} requests, "
               f"{mt.steps} steps in {wall:.2f} s | prefill "
               f"{mt.prefill_tokens / mt.prefill_s:.1f} tok/s, decode "
@@ -3218,8 +3248,8 @@ def jamba_phase(torch, kernels, name):
           f"kernel launches {json.dumps(counts)}; gating, "
           f"expert_ffn_grouped and flash_attention each launched: "
           f"{launched} | peak device memory {peak / 1e9:.2f} GB beside "
-          f"{total / 1e9:.2f} GB of weights at {layers} layers | on {name}",
-          flush=True)
+          f"{total / 1e9:.2f} GB of weights at {JAMBA_LAYERS} layers | on "
+          f"{name}", flush=True)
     del params, leaves
     free(torch)
     return ok and same and launched, counts
@@ -3909,6 +3939,564 @@ def ep_phase(torch, kernels, name):
     return ok, counts, trial_counts
 
 
+# --------------------------------------------------------------------------
+# phase 17: the GSPMD layout on DTensor, on gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+LAYOUT_MESH, LAYOUT_LAYERS, LAYOUT_SEED = (2, 2), 2, 17
+LAYOUT_BATCH, LAYOUT_SEQ, LAYOUT_DECODE, LAYOUT_TRAIN_SEQ = 4, 512, 8, 128
+# fsdp gathers every weight in every step through host memory (some 9 s
+# a step on the card): it decodes one step where tp decodes 8 (the depth
+# cut that keeps the script inside its time limit)
+LAYOUT_DECODE_FSDP = 1
+LAYOUT_TIMEOUT_S = 600
+
+
+def layout_cfg():
+    """Mixtral-8x7B at published widths, ``LAYOUT_LAYERS`` layers,
+    bfloat16 (its config's own dtypes)."""
+    from repro_torch.configs import get_config
+    return get_config("mixtral-8x7b").replace(n_layers=LAYOUT_LAYERS)
+
+
+def _local_ref(lay, full, dt):
+    """This rank's slice of the full reference tensor ``full`` as the
+    DTensor ``dt`` lies."""
+    lshape, off = lay.local_offset(full.shape, dt.placements, dt.device_mesh)
+    for d, (o, n) in enumerate(zip(off, lshape)):
+        full = full.narrow(d, o, n)
+    return full
+
+
+@contextlib.contextmanager
+def recorded_routing(torch, replay=None):
+    """Within: every K1 call's top-k choices appended to the yielded list;
+    with ``replay`` (a list of (T, K) choices, one a call in order), each
+    call takes those choices instead, its gates and probabilities from its
+    own logits (``train_parity``'s way of holding two steps to the same
+    function)."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.gating.ops import _gates, _probs
+    real, got = moe.gating, []
+
+    def gating(logits, top_k, router_type, renormalize):
+        if replay is None:
+            out = real(logits, top_k, router_type, renormalize)
+            got.append(out[1].detach())
+            return out
+        idx = replay[len(got)].to(logits.device)
+        got.append(idx)
+        x = logits.float()
+        probs = _probs(x, router_type)
+        return _gates(x, probs, idx, router_type, renormalize), idx, probs
+
+    moe.gating = gating
+    try:
+        yield got
+    finally:
+        moe.gating = real
+
+
+def layout_steps(torch, cfg, params, toks, lbls, mesh, wmode, ref=None,
+                 ref_grads=None):
+    """Phase 17's steps laid out on ``mesh`` from the full ``params``
+    (``meta`` for the fake group's dry run): the prefill into a
+    sequence-sharded cache under ``prefill_32k``'s map (under tp after the
+    B x S forward), ``LAYOUT_DECODE`` greedy decode steps under tp and
+    ``LAYOUT_DECODE_FSDP`` under fsdp with ``decode_32k``'s, the gradients
+    of one training step at B x ``LAYOUT_TRAIN_SEQ`` under ``train_4k``'s.
+    Returns (results, each step's collectives as (kind, result bytes,
+    group size, axes), the per-kind bytes).  With ``ref``
+    (the single-process port's results, on every rank) each rank holds
+    its own shards against the reference's slices: no result is gathered
+    but the greedy tokens and the training step's routing:
+    ``ref_grads(routing)`` gives the single process's gradients on the
+    laid-out step's routing (``recorded_routing``), so that both steps
+    differentiate the same function."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.collectives import CollectiveCount
+    from repro_torch.models.model import apply_model, init_caches, meta_caches
+    from repro_torch.serving.steps import (default_dali_config,
+                                           init_serve_state,
+                                           make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves
+    meta = toks.is_meta
+    B, S = toks.shape
+    lm = lambda shape: shd.logical_map_for(cfg, shape, mesh)
+    sig, kinds, out, secs = {}, {}, {}, {}
+
+    def count(name, cc, t0):
+        if not meta:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        sig[name] = cc.signature()
+        for k, v in cc.summary().items():
+            if not isinstance(v, dict):
+                kinds[k] = kinds.get(k, 0) + v
+
+    with shd.rules(mesh, lm("prefill_32k"), wmode), torch.no_grad():
+        p = lay.distribute_params(params, cfg, mesh, wmode)
+        t = lay.distribute_batch(toks, mesh)
+        if wmode == "tp":
+            t0 = time.perf_counter()
+            with CollectiveCount(mesh) as cc:
+                logits, _, infos = apply_model(p, t, cfg, trace=True)
+            count("forward", cc, t0)
+        if ref is not None and wmode == "tp":
+            # each row's largest difference over the rank's vocab columns,
+            # then over 'model'; each row against its own largest logit
+            lg = logits.to_local().float().cpu()
+            r = _local_ref(lay, ref["logits"], logits)
+            diff = (lg - r).abs().amax(-1)
+            dist.all_reduce(diff, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group("model"))
+            b0, bl = lay.offset(logits, 0), lg.shape[0]
+            rmax = ref["logits"][b0:b0 + bl].abs().amax(-1)
+            out["row_err"] = (diff / (rmax + 1e-6)).flatten()
+            idx = infos[-1][0]["topk_idx"].to_local().cpu()   # (L, T_l, K)
+            ridx = ref["topk"][:, b0 * S:(b0 + bl) * S]
+            flip = (idx.sort(-1).values != ridx.sort(-1).values).any(-1)
+            out["flips"] = [int(f.sum()) for f in flip]        # per layer
+            out["flipped"] = flip.any(0)                        # per token
+        if wmode == "tp":
+            del logits, infos
+        n_dec = LAYOUT_DECODE if wmode == "tp" else LAYOUT_DECODE_FSDP
+        max_len = S + n_dec
+        caches = lay.distribute_caches(
+            meta_caches(cfg, B, max_len, dtype=cfg.dtype) if meta
+            else init_caches(cfg, B, max_len, device="cuda"), cfg,
+            "prefill_32k", mesh)
+        t0 = time.perf_counter()
+        with CollectiveCount(mesh) as cc:
+            first, caches = make_prefill_step(cfg)(p, t, caches)
+        count("prefill", cc, t0)
+    dcfg = default_dali_config(cfg)
+    decode = make_decode_step(cfg, dcfg)
+    with shd.rules(mesh, lm("decode_32k"), wmode), torch.no_grad():
+        if meta:
+            from repro_torch.launch.shapes import meta_serve_state
+            from repro_torch.serving.steps import resolve_policy
+            state, _ = meta_serve_state(cfg, B, max_len,
+                                        resolve_policy(None, cfg, dcfg))
+        else:
+            state = init_serve_state(cfg, B, max_len, dali_cfg=dcfg,
+                                     device="cuda")
+        state.update(caches=caches, tokens=first, pos=torch.full(
+            (), S, dtype=torch.int32, device=toks.device))
+        got = [first]
+        t0 = time.perf_counter()
+        with CollectiveCount(mesh) as cc:
+            for _ in range(n_dec):
+                state, _, _ = decode(p, state)
+                got.append(state["tokens"])
+        count("decode", cc, t0)
+        if ref is not None:
+            out["tokens"] = [g.full_tensor().cpu() for g in got]
+        del p, state, caches, got
+    T = LAYOUT_TRAIN_SEQ
+    with shd.rules(mesh, lm("train_4k"), wmode):
+        p = lay.distribute_params(params, cfg, mesh, wmode)
+        batch = lay.distribute_batch({"tokens": toks[:, :T],
+                                      "labels": lbls[:, :T]}, mesh)
+        t0 = time.perf_counter()
+        with CollectiveCount(mesh) as cc, recorded_routing(torch) as route:
+            (_, metrics), grads = value_and_grad(make_loss_fn(cfg), p,
+                                                 batch)
+        count("train", cc, t0)
+        if ref is not None:
+            # each MoE layer's choices, every rank's token block gathered
+            from torch.distributed.tensor import DTensor
+            blocks = torch.stack(route).reshape(
+                (len(route),) + lay.local_offset(
+                    (B, T), lay.place(("data", "model")))[0] + (-1,))
+            full = DTensor.from_local(
+                blocks, mesh, lay.place((None, "data", "model", None)),
+                run_check=False).full_tensor()
+            rg = ref_grads(full.reshape(len(route), B * T, -1).cpu())
+            out["loss"] = float(metrics["loss"].full_tensor())
+            out["ref_loss"] = rg["loss"]
+            out["grad_ref_max"] = rg["max"]
+            out["train_moved"] = rg["moved"]
+            # per leaf, on the card: the largest difference of the shards
+            out["grad_diff"] = [
+                float((g.to_local().float() - _local_ref(lay, r, g).to(
+                    g.to_local().device).float()).abs().max())
+                for g, r in zip(tree_leaves(grads), tree_leaves(rg["grads"]))]
+        del p, grads
+    out["seconds"] = secs
+    return out, sig, kinds
+
+
+def layout_reference(torch, cfg, params, toks, lbls):
+    """The single-process port on the card from the same params: logits,
+    each MoE layer's top-k choices, the greedy tokens and each decode
+    step's logits (on the host)."""
+    from repro_torch.models.model import apply_model, init_caches
+    from repro_torch.serving.steps import (default_dali_config,
+                                           init_serve_state,
+                                           make_decode_step,
+                                           make_prefill_step)
+    B, S = toks.shape
+    ref = {}
+    with torch.no_grad():
+        logits, _, infos = apply_model(params, toks, cfg, trace=True)
+        ref["logits"] = logits[..., :cfg.vocab].float().cpu()
+        ref["topk"] = infos[-1][0]["topk_idx"].cpu()         # (L, T, K)
+        del logits, infos
+        caches = init_caches(cfg, B, S + LAYOUT_DECODE, device="cuda")
+        first, caches = make_prefill_step(cfg)(params, toks, caches)
+        dcfg = default_dali_config(cfg)
+        state = init_serve_state(cfg, B, S + LAYOUT_DECODE, dali_cfg=dcfg,
+                                 device="cuda")
+        state.update(caches=caches, tokens=first,
+                     pos=torch.full((), S, dtype=torch.int32, device="cuda"))
+        decode = make_decode_step(cfg, dcfg)
+        got, lgs = [first.cpu()], []
+        for _ in range(LAYOUT_DECODE):
+            state, lg, _ = decode(params, state)
+            got.append(state["tokens"].cpu())
+            lgs.append(lg[:, -1, :cfg.vocab].float().cpu())
+        ref["tokens"], ref["dec_logits"] = got, torch.stack(lgs)
+    return ref
+
+
+def layout_ref_grads(torch, cfg, params, toks, labels, routing):
+    """The single-process port's training-step gradients (on the host) on
+    the laid-out step's ``routing`` (L, B x T, K), their loss, each leaf's
+    largest magnitude, and how many of (layer, token) rows its own router
+    would have sent elsewhere."""
+    from repro_torch.models.model import apply_model
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    with recorded_routing(torch, list(routing)):
+        (_, m), grads = value_and_grad(make_loss_fn(cfg), params,
+                                       {"tokens": toks, "labels": labels})
+    with torch.no_grad(), recorded_routing(torch) as own:
+        apply_model(params, toks, cfg)
+    moved = sum(int((a.cpu().sort(-1).values != b.sort(-1).values)
+                    .any(-1).sum()) for a, b in zip(own, routing))
+    return {"grads": tree_map(lambda g: g.cpu(), grads),
+            "loss": float(m["loss"]), "moved": moved,
+            "max": [float(g.float().abs().max()) for g in tree_leaves(grads)]}
+
+
+def layout_rank(rank, world, tokens, labels, ref_path):
+    """One rank of phase 17 (a): weights drawn on the card from seed 0 (the
+    same on every rank); rank 0 first runs the single-process port on them
+    and writes its results to ``ref_path``, which every rank maps; every
+    rank then runs ``layout_steps`` under ``tp`` and ``fsdp``."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_mesh, wire_name
+    from repro_torch.models.model import init_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = layout_cfg()
+    toks = torch.as_tensor(tokens, device="cuda")
+    lbls = torch.as_tensor(labels, device="cuda")
+    params = init_model(cfg, seed=0, device="cuda")
+    out = {"rank": rank, "wire": wire_name("gloo", "cuda")}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        ref = layout_reference(torch, cfg, params, toks, lbls)
+        torch.cuda.synchronize()
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["ref_tokens"] = ref["tokens"]
+        out["ref_dec_logits"] = ref["dec_logits"]
+        torch.save(ref, ref_path)
+        del ref
+    # four processes share the card: the full weights wait in host memory,
+    # and only each rank's shards go to the card
+    params = tree_map(lambda t: t.cpu(), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(*LAYOUT_MESH, device_type="cuda")   # after rank 0's save
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    saved = {}
+
+    def ref_grads(routing):
+        """Rank 0's single-process gradients on ``routing``, mapped by every
+        rank (computed once per routing)."""
+        import torch.distributed as dist
+        key = routing.numpy().tobytes()
+        if key not in saved:
+            path = f"{ref_path}.{len(saved)}"
+            dist.barrier()
+            if rank == 0:
+                from repro_torch.launch import sharding as shd
+                counts = kernels.launch_counts()  # the reference's: uncounted
+                with shd.rules(None):        # the single process, unlaid
+                    rg = layout_ref_grads(torch, cfg, tree_map(
+                        lambda t: t.cuda(), params),
+                        toks[:, :LAYOUT_TRAIN_SEQ],
+                        lbls[:, :LAYOUT_TRAIN_SEQ], routing)
+                kernels.LAUNCHES.update(counts)
+                torch.save(rg, path)
+                del rg
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+            saved[key] = torch.load(path, mmap=True, weights_only=True)
+        return saved[key]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for wmode in ("tp", "fsdp"):
+        t0 = time.perf_counter()
+        res, sig, kinds = layout_steps(torch, cfg, params, toks, lbls, mesh,
+                                       wmode, ref, ref_grads)
+        torch.cuda.synchronize()
+        out[wmode] = dict(res, sig=sig, kinds=kinds,
+                          total_s=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = kernels.launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def layout_verdict(torch, r0, ranks, wmode):
+    """(a)'s gates for one weight mode.  bfloat16 rounds the ranks' partial
+    sums where the single process rounds one sum, so a token whose router
+    scores two experts within that rounding may take another expert
+    (printed per MoE layer); such a token's row, and the rows a flip feeds,
+    are the single process's only in distribution.  So: every row whose
+    token took the same experts in every layer within 3e-2; at most 1 %
+    of the tokens flipped; each greedy token equal, or the first that
+    differs in its row one the single process scores within 3e-2 of its
+    own choice (a tie at bfloat16's resolution; the row's later tokens
+    follow other inputs); each gradient leaf within 3e-2 of the single
+    process's step on the laid-out step's routing.  -> (ok, lines)."""
+    w = r0[wmode]
+    firsts = [r for r in ranks if r["rank"] % LAYOUT_MESH[1] == 0]
+    if "row_err" not in w:
+        return _verdict_rest(torch, r0, ranks, wmode, [])
+    rows = torch.cat([r[wmode]["row_err"] for r in firsts])
+    flipped = torch.cat([r[wmode]["flipped"] for r in firsts])
+    flips = [sum(r[wmode]["flips"][i] for r in firsts)
+             for i in range(len(w["flips"]))]
+    kept = rows[~flipped]
+    row_ok = float(kept.max()) < BF16_TOL
+    flip_ok = int(flipped.sum()) <= 0.01 * rows.numel()
+    lines = [f": logits row rel_err max {float(rows.max()):.3e}, median "
+             f"{float(rows.median()):.3e}; {int((rows >= BF16_TOL).sum())} "
+             f"of {rows.numel()} rows at 3e-2 or more; tokens that took "
+             f"other experts than the single process, per MoE layer {flips}"
+             f" ({int(flipped.sum())} tokens); the rows of the others: max "
+             f"{float(kept.max()):.3e} | "
+             f"{'pass' if row_ok and flip_ok else 'FAIL'}"]
+    ok, lines = _verdict_rest(torch, r0, ranks, wmode, lines)
+    return ok and row_ok and flip_ok, lines
+
+
+def _verdict_rest(torch, r0, ranks, wmode, lines):
+    """``layout_verdict``'s tokens and gradients."""
+    w = r0[wmode]
+    # greedy tokens: equal, or the first difference a tie
+    lay_t = torch.cat(w["tokens"], 1)
+    ref_t = torch.cat(r0["ref_tokens"], 1)[:, :lay_t.shape[1]]
+    tok_ok = True
+    for i in range(lay_t.shape[0]):
+        diff = (lay_t[i] != ref_t[i]).nonzero()
+        note = "the same"
+        if len(diff):
+            step = int(diff[0])
+            if step == 0:
+                tok_ok, note = False, "differs at the prefill's token"
+            else:
+                lg = r0["ref_dec_logits"][step - 1, i]
+                gap = float(lg[ref_t[i, step]] - lg[lay_t[i, step]])
+                tie = gap <= BF16_TOL * float(lg.abs().max())
+                tok_ok = tok_ok and tie
+                note = (f"first differs at decode step {step}, where the "
+                        f"single process scores the laid-out choice "
+                        f"{gap:.4f} under its own (row max "
+                        f"{float(lg.abs().max()):.2f}): "
+                        f"{'a tie' if tie else 'NOT a tie'}")
+        lines.append(f" row {i}: laid out {lay_t[i].tolist()} | single "
+                     f"{ref_t[i].tolist()} | {note}")
+    lines.append(f": greedy tokens {'pass' if tok_ok else 'FAIL'}")
+    lines.append(": rank 0's collectives, bytes per device "
+                 + json.dumps({k: v for k, v in w["kinds"].items()}))
+    if "grad_diff" not in w:
+        return tok_ok, lines
+    gmax = w["grad_ref_max"]
+    gd = [max(r[wmode]["grad_diff"][k] for r in ranks)
+          for k in range(len(gmax))]
+    gerr = [d / (m + 1e-6) for d, m in zip(gd, gmax)]
+    grad_ok = all(e < BF16_TOL for e in gerr)
+    lines.append(f": the single process's training step on the laid-out "
+                 f"step's routing ({w['train_moved']} (layer, token) rows its "
+                 f"own router would have sent elsewhere); gradients max "
+                 f"rel_err {max(gerr):.3e} "
+                 f"({sum(e >= BF16_TOL for e in gerr)} of {len(gerr)} "
+                 f"leaves at 3e-2 or more); "
+                 f"loss {w['loss']:.5f} against {w['ref_loss']:.5f} | "
+                 f"{'pass' if grad_ok else 'FAIL'}")
+    return tok_ok and grad_ok, lines
+
+
+def layout_dry(torch, tokens_shape):
+    """(b): the same steps on ``meta`` as rank 0 of a fake group of 4."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.models.model import meta_model
+    cfg = layout_cfg()
+    meta = lambda: torch.empty(tokens_shape, dtype=torch.int32,
+                               device="meta")
+    sigs = {}
+    with fake_world(LAYOUT_MESH[0] * LAYOUT_MESH[1]):
+        mesh = init_device_mesh("cpu", LAYOUT_MESH,
+                                mesh_dim_names=("data", "model"))
+        for wmode in ("tp", "fsdp"):
+            sigs[wmode] = layout_steps(torch, cfg, meta_model(cfg), meta(),
+                                       meta(), mesh, wmode)[1]
+    return sigs
+
+
+def layout_phase(torch, kernels, card):
+    """Phase 17: (a) the layout on ``LAYOUT_MESH`` gloo ranks sharing the
+    card, against the single-process port; (b) the fake group's ``meta``
+    run of the same steps counts the same collectives; (c) the production
+    mesh's dry run of Mixtral-8x7B decode_32k (subprocesses started first,
+    read last).  Returns (ok, the ranks' launches summed)."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import MarkovCorpus
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    dry = {mesh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "mixtral-8x7b", "--shape", "decode_32k", "--mesh", mesh, "--force"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for mesh in ("pod", "multi-pod")}
+    cfg = layout_cfg()
+    corpus = MarkovCorpus(vocab=cfg.vocab, seed=0)
+    rng = np.random.default_rng(LAYOUT_SEED)
+    tokens = np.stack([corpus.sample(rng, LAYOUT_SEQ + 1)
+                       for _ in range(LAYOUT_BATCH)]).astype(np.int32)
+    toks, lbls = tokens[:, :-1], tokens[:, 1:]
+    # (b) runs on the host beside (a), in a process of its own (the fake
+    # group is per process)
+    dry_b = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys, torch; "
+         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]; import chip_smoke; "
+         "print(json.dumps(chip_smoke.layout_dry(torch, "
+         f"{tuple(toks.shape)!r})))"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    print(f"layout: {cfg.name} at published widths, {LAYOUT_LAYERS} layers, "
+          f"bfloat16, on a {LAYOUT_MESH} mesh of gloo ranks sharing the "
+          f"card: prefill B={LAYOUT_BATCH} S={LAYOUT_SEQ} (prefill_32k; "
+          f"under tp the forward's logits too), {LAYOUT_DECODE} greedy "
+          f"decode steps under tp and {LAYOUT_DECODE_FSDP} under fsdp "
+          f"(decode_32k, the cache's sequence over 'model'), under both the "
+          f"gradients of a training step at S={LAYOUT_TRAIN_SEQ} (train_4k)",
+          flush=True)
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="layout-ref-")
+    try:
+        ranks = run_ranks(layout_rank, LAYOUT_MESH[0] * LAYOUT_MESH[1],
+                          backend="gloo", device="cuda",
+                          timeout_s=LAYOUT_TIMEOUT_S,
+                          args=(np.ascontiguousarray(toks),
+                                np.ascontiguousarray(lbls),
+                                os.path.join(tmp, "ref.pt")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_a = time.perf_counter() - t0
+    r0 = ranks[0]
+    ok = True
+    counts = {k: sum(r["launches"][k] for r in ranks)
+              for k in r0["launches"]}
+    for r in ranks:
+        lc = r["launches"]
+        good = all(lc[k] > 0 for k in ("gating", "expert_ffn_ragged",
+                                       "flash_attention"))
+        ok = ok and good
+        print(f"layout (a) rank {r['rank']}: K1 {lc['gating']} K2 ragged "
+              f"{lc['expert_ffn_ragged']} K3 {lc['flash_attention']} "
+              f"(K2 grouped {lc['expert_ffn_grouped']}), peak "
+              f"{r['peak_gb']:.2f} GB, tp {r['tp']['total_s']:.1f} s "
+              f"{json.dumps({k: round(v, 2) for k, v in r['tp']['seconds'].items()})}"
+              f", fsdp {r['fsdp']['total_s']:.1f} s "
+              f"{json.dumps({k: round(v, 2) for k, v in r['fsdp']['seconds'].items()})}"
+              f" | launched {'pass' if good else 'FAIL'}", flush=True)
+    print(f"layout (a): wire {r0['wire']}; the single-process port's peak "
+          f"{r0['single_peak_gb']:.2f} GB on rank 0", flush=True)
+    for wmode in ("tp", "fsdp"):
+        good, lines = layout_verdict(torch, r0, ranks, wmode)
+        ok = ok and good
+        for line in lines:
+            print(f"layout (a) {wmode}{line}", flush=True)
+    # (b) the fake group's meta run of the same steps
+    stdout, stderr = dry_b.communicate(timeout=LAYOUT_TIMEOUT_S)
+    if dry_b.returncode != 0:
+        print(f"layout (b): FAIL\n{stderr[-2000:]}", flush=True)
+        ok = False
+    dry_sigs = json.loads(stdout) if dry_b.returncode == 0 else {}
+    norm = lambda sig: [[e[0], e[1], e[2], list(e[3])] for e in sig]
+    for wmode, steps in dry_sigs.items():
+        for step, want in steps.items():
+            got = r0[wmode]["sig"][step]
+            same = norm(got) == norm(want)
+            ok = ok and same
+            print(f"layout (b) {wmode} {step}: ranks {len(got)} collectives "
+                  f"{sum(e[1] for e in got)} result bytes, meta {len(want)} "
+                  f"/ {sum(e[1] for e in want)}: the same kind for kind and "
+                  f"byte for byte: {same}", flush=True)
+    # (c) the production mesh's dry run
+    for mesh, proc in dry.items():
+        stdout, stderr = proc.communicate(timeout=LAYOUT_TIMEOUT_S)
+        rec_ok = proc.returncode == 0
+        ok = ok and rec_ok
+        if not rec_ok:
+            print(f"layout (c) {mesh}: FAIL\n{stderr[-2000:]}", flush=True)
+            continue
+        path = ROOT / "reports" / "dryrun_torch" / \
+            f"mixtral-8x7b__decode_32k__{mesh}.json"
+        rec = json.loads(path.read_text())
+        r = rec["roofline"]
+        by_axis = {a: round(b / 1e9, 4) for a, b in
+                   rec["collectives"]["by_axis"].items()}
+        print(f"layout (c) {mesh} (predictions at the data sheet's rates, "
+              f"{rec['links']['model']['link']} "
+              f"{rec['links']['model']['bytes_s'] / 1e9:.0f} GB/s and "
+              f"{rec['links']['data']['link']} "
+              f"{rec['links']['data']['bytes_s'] / 1e9:.0f} GB/s a card, "
+              f"{r['peaks']['flops'] / 1e12:.0f} TFLOP/s, "
+              f"{r['peaks']['hbm_bytes_s'] / 1e12:.2f} TB/s; run on {card}): "
+              f"{r['n_chips']} cards, wmode {rec['weight_mode']}, per-card "
+              f"peak {rec['peak_live_bytes'] / 1e9:.2f} GB, collective GB by "
+              f"axis {by_axis}, compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}",
+              flush=True)
+    print(f"layout: launches summed over the ranks {json.dumps(counts)} "
+          f"((a) {t_a:.1f} s with the spawn)", flush=True)
+    print(f"layout: phase {time.perf_counter() - t0:.1f} s on {card} | "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok, counts
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -4022,6 +4610,10 @@ def main():
     free(torch)
     ep_ok, ep_counts, ep_trial_counts = ep_phase(torch, kernels, card)
 
+    # -- phase 17: the GSPMD layout on DTensor ------------------------------
+    free(torch)
+    layout_ok, layout_counts = layout_phase(torch, kernels, card)
+
     out = []
     for r in rows:
         # a row at the offload path's, the wave's, training's, a phase-10
@@ -4055,6 +4647,7 @@ def main():
                        for t, c in arch_counts.items()},
                     "launches_ep": ep_counts[r["name"]],
                     "launches_ep_trials": ep_trial_counts[r["name"]],
+                    "launches_layout": layout_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4082,6 +4675,7 @@ def main():
                               ("audit", audit_ok),
                               ("remat", remat_ok),
                               ("ep", ep_ok),
+                              ("layout", layout_ok),
                               ("launches", launched_ok)) if not ok]
     if failed:
         fail("phases failed: " + ", ".join(failed))

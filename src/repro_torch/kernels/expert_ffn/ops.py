@@ -49,7 +49,8 @@ def expert_ffn_plain(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     """Plain PyTorch version: float32 arithmetic, output in xe's dtype.
     Group g indexes its weight set instead of gathering copies of it (the
     stacks are unbound once, so a weight's gradient is one stack of its
-    experts' slices, not one full-size buffer per expert)."""
+    experts' slices, not one full-size buffer per expert).  On ``meta``
+    (the shape dry run) every group reads weight set 0."""
     G, C, d = xe.shape
     fn = ACTS[act]
     if counts is None:
@@ -57,7 +58,9 @@ def expert_ffn_plain(xe, w_gate, w_up, w_down, counts=None, expert_ids=None,
     else:
         valid = torch.arange(C, device=xe.device)[None, :] < counts[:, None]
     x = torch.where(valid[..., None], xe, 0).float().unbind(0)
-    eids = (expert_ids.tolist() if expert_ids is not None else range(G))
+    # on ``meta`` the ids are not known; any one gives every group's shapes
+    eids = (range(G) if expert_ids is None
+            else [0] * G if expert_ids.is_meta else expert_ids.tolist())
     wg, wu, wd = (w.unbind(0) for w in (w_gate, w_up, w_down))
     out = [(fn(x[g] @ wg[e].float()) * (x[g] @ wu[e].float()))
            @ wd[e].float() for g, e in enumerate(eids)]

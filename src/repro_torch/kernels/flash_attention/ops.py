@@ -57,6 +57,19 @@ def attn_mask(q_pos, k_pos, *, causal: bool, window: int):
     return valid
 
 
+def masked_scores(qg, k, q_pos, k_pos, *, causal: bool, window: int,
+                  softcap: float, scale: float):
+    """Grouped queries qg (B, Sq, Hkv, G, D) against keys k (B, Sk, Hkv, D)
+    -> float32 scores (B, Hkv, G, Sq, Sk), soft-capped, NEG_INF where the
+    position mask excludes the key (``mha``, its blockwise form and the
+    laid-out decode's partial softmax all score through it)."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = attn_mask(q_pos, k_pos, causal=causal, window=window)
+    return torch.where(valid[:, None, None], s, NEG_INF)
+
+
 def mha_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
                   softcap: float, scale: float):
     """Online-softmax attention over blocks of ``BLOCKWISE_KV_BLOCK`` keys,
@@ -87,13 +100,9 @@ def _blockwise_slab(q, k, v, q_pos, k_pos, *, causal, window, softcap,
     acc = q.new_zeros((B, Hkv, G, Sq, Dv), dtype=torch.float32)
     block = BLOCKWISE_KV_BLOCK
     for s0 in range(0, Sk, block):
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                         k[:, s0:s0 + block].float()) * scale
-        if softcap:
-            s = softcap * torch.tanh(s / softcap)
-        valid = attn_mask(q_pos, k_pos[:, s0:s0 + block], causal=causal,
-                          window=window)
-        s = torch.where(valid[:, None, None], s, NEG_INF)
+        s = masked_scores(qg, k[:, s0:s0 + block], q_pos,
+                          k_pos[:, s0:s0 + block], causal=causal,
+                          window=window, softcap=softcap, scale=scale)
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -118,12 +127,9 @@ def mha(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    valid = attn_mask(q_pos, k_pos, causal=causal, window=window)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
+    s = masked_scores(q.reshape(B, Sq, Hkv, G, D), k, q_pos, k_pos,
+                      causal=causal, window=window, softcap=softcap,
+                      scale=scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, Hq * v.shape[-1]).to(q.dtype)

@@ -141,7 +141,10 @@ def _trials_rank(rank, world, steps, faults, topology, B, S, n_requests,
         if cuda:
             torch.cuda.synchronize(dev)
 
-    with shd.rules(mesh, "tp"):
+    # the reference's logical map (ep_serve.py:125-127); the trials call
+    # the EP layer on plain tensors, which reads only the mesh and wmode
+    with shd.rules(mesh, shd.logical_map_for(cfg, "prefill_32k", mesh),
+                   "tp"):
         if not ep_applicable(cfg, B, S):
             raise ValueError(f"EP path not applicable at B={B}, S={S}")
 

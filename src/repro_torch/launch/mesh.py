@@ -9,10 +9,13 @@ and each rank builds the mesh it belongs to (``make_mesh``): a
 machine with one card can run: every rank computes on that card (or on the
 CPU) and the exchanged tensors travel through host memory.
 ``backend="nccl"`` puts rank ``r`` on ``cuda:r`` and needs a card per
-rank; it is the same collectives without the staging.
+rank; it is the same collectives without the staging.  Under gloo on the
+card, a laid-out model's DTensor collectives cross host memory too
+(``sharding.rules`` enters ``collectives.HostWire``).
 
-The TPU pod's 16 x 16 production mesh (``make_production_mesh``) is not
-ported (ROADMAP.md item 25).
+``make_production_mesh`` lays out the mesh a production deployment of the
+port would run on (``AXIS_LINKS``: the link each axis crosses); the shape
+dry run builds it over a fake process group (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -29,11 +32,62 @@ import torch
 AXES = ("data", "model")
 BACKENDS = ("gloo", "nccl")
 
+# the card's production mesh: 8 H100 SXM a node, joined by NVLink 4 inside
+# it; nodes joined by InfiniBand NDR, one 400 Gb/s port a card
+NODE_CARDS = 8
+PRODUCTION_SHAPES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+# axis -> (link, bytes/s each way per card, source); data-sheet
+# predictions, not readings
+NVLINK = ("NVLink 4", 450e9, "H100 SXM data sheet: 900 GB/s bidirectional "
+          "NVLink per card")
+INFINIBAND = ("InfiniBand NDR", 50e9, "DGX H100: one 400 Gb/s NDR port "
+              "(ConnectX-7) per card")
+AXIS_LINKS = {"model": NVLINK, "data": INFINIBAND, "pod": INFINIBAND}
 
-def make_mesh(dp: int, tp: int):
+
+def make_production_mesh(multi_pod: bool = False):
+    """The production mesh: (data=32, model=8), 256 H100 SXM in 32 nodes of
+    8, or with ``multi_pod`` (pod=2, data=32, model=8), 512 cards.
+
+    Tensor parallelism ('model') carries an all-reduce or an all-gather in
+    every layer, so it stays inside one NVLink domain of 8 cards, where
+    each card moves 450 GB/s each way.  Data parallelism ('data', 'pod')
+    carries the batch, the FSDP weight gathers and the gradient
+    reductions, which are fewer and larger; it crosses InfiniBand at 50
+    GB/s each way a card.  (The TPU pod's 16 x 16 torus has no such
+    boundary: there every axis rides the same ICI links.)
+
+    Built over the initialised world, which must hold the mesh's ranks:
+    the shape dry run's fake process group (``launch/dryrun.py``), whose
+    collectives move nothing; the mesh's device type is ``cpu`` and its
+    local tensors live on ``meta``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"the production mesh needs an initialised world "
+                           f"of {n} ranks (launch/dryrun.py::fake_world)")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def group_link(ranks) -> tuple:
+    """The link a group of global ranks crosses on the production mesh:
+    NVLink inside one node of ``NODE_CARDS``, InfiniBand across nodes."""
+    nodes = {r // NODE_CARDS for r in ranks}
+    return NVLINK if len(nodes) <= 1 else INFINIBAND
+
+
+def make_mesh(dp: int, tp: int, device_type=None):
     """The (dp, tp) ``DeviceMesh`` over the initialised world, named
-    ``("data", "model")``; its device type is the ranks' wire: ``cpu`` under
-    gloo (tensors staged through host memory), ``cuda`` under NCCL."""
+    ``("data", "model")``.  Its device type defaults to the ranks' wire:
+    ``cpu`` under gloo (tensors staged through host memory), ``cuda`` under
+    NCCL; a laid-out model on the card under gloo passes
+    ``device_type="cuda"`` (a DTensor's local tensors live on its mesh's
+    device type; ``HostWire`` stages their collectives)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
@@ -43,7 +97,7 @@ def make_mesh(dp: int, tp: int):
     if dp * tp != world:
         raise ValueError(f"a ({dp}, {tp}) mesh needs {dp * tp} ranks, the "
                          f"world has {world}")
-    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dev = device_type or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     mesh = init_device_mesh(dev, (dp, tp), mesh_dim_names=AXES)
     if mesh.mesh.flatten().tolist() != list(range(world)):
         raise RuntimeError("the mesh must hold the ranks in row-major order")
@@ -67,6 +121,17 @@ def axis_index(mesh, name) -> int:
     """This rank's coordinate on mesh axis ``name`` (0 without the axis)."""
     return (mesh.get_local_rank(name) if name in mesh.mesh_dim_names
             else 0)
+
+
+def wire_name(backend: str, device) -> str:
+    """How the ranks' collectives travel: gloo over host memory for CPU
+    tensors, the host-staged wire (``launch/collectives.py::HostWire``,
+    entered by a laid-out ``sharding.rules``) for CUDA tensors under gloo,
+    NCCL on the cards."""
+    if backend == "nccl":
+        return "nccl"
+    return "host-staged gloo" if torch.device(device).type == "cuda" \
+        else "gloo"
 
 
 def _rank_main(rank, world, backend, device, path, timeout_s, fn,

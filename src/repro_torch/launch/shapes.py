@@ -13,9 +13,10 @@ hybrid (jamba) and gemma2 (sliding-window local layers); pure
 full-attention archs skip it, as in the reference.  Where the reference
 builds sharding-annotated ``ShapeDtypeStruct``s, these builders build
 parameters, caches and inputs on the ``meta`` device (shapes and dtypes,
-no storage) with the model's own init functions.  There is no sharding:
-the batch is global and the mesh is one card until expert parallelism is
-ported (ROADMAP item 7).
+no storage) with the model's own init functions.  Without a mesh they are
+one card's global trees; with one (``launch/mesh.py::
+make_production_mesh`` over the dry run's fake group) they are rank 0's
+local shards, laid out as DTensors by ``launch/layout.py``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 
 from repro_torch.configs import canonical, get_config
 from repro_torch.device import torch_dtype
+from repro_torch.launch import layout as lay
+from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import meta_caches, meta_model
 from repro_torch.models.moe import expert_capacity
@@ -92,7 +95,8 @@ def _capacity(cfg: ModelConfig, tokens: int):
 # step + meta-args builders (one per shape kind)
 # --------------------------------------------------------------------------
 
-def build_train(cfg: ModelConfig, spec: ShapeSpec):
+def build_train(cfg: ModelConfig, spec: ShapeSpec, mesh=None,
+                wmode: str = "tp"):
     from repro_torch.training.optimizer import OptConfig, init_adamw
     from repro_torch.training.train_step import make_train_step
     cfg = cfg.replace(remat=True)
@@ -104,17 +108,27 @@ def build_train(cfg: ModelConfig, spec: ShapeSpec):
         batch["cross_src"] = cs
     fn = make_train_step(cfg, OptConfig(),
                          moe_capacity=_capacity(cfg, B * S))
-    return cfg, fn, (params, init_adamw(params), batch)
+    opt = init_adamw(params)
+    if mesh is not None:
+        params = lay.distribute_params(params, cfg, mesh, wmode)
+        opt = lay.distribute_opt_state(opt, cfg, mesh, wmode)
+        batch = lay.distribute_batch(batch, mesh)
+    return cfg, fn, (params, opt, batch)
 
 
-def build_prefill(cfg: ModelConfig, spec: ShapeSpec):
+def build_prefill(cfg: ModelConfig, spec: ShapeSpec, mesh=None,
+                  wmode: str = "tp"):
     from repro_torch.serving.steps import make_prefill_step
     B, S = spec.batch, spec.seq
     caches = meta_caches(cfg, B, S, dtype=cfg.dtype,
                          n_cross=n_cross_for(cfg, spec))
     fn = make_prefill_step(cfg, moe_capacity=_capacity(cfg, B * S))
-    return cfg, fn, (meta_model(cfg), _tokens(B, S), caches, None,
-                     cross_src_meta(cfg, spec))
+    params, tokens = meta_model(cfg), _tokens(B, S)
+    if mesh is not None:
+        params = lay.distribute_params(params, cfg, mesh, wmode)
+        tokens = lay.distribute_batch(tokens, mesh)
+        caches = lay.distribute_caches(caches, cfg, spec.name, mesh)
+    return cfg, fn, (params, tokens, caches, None, cross_src_meta(cfg, spec))
 
 
 def meta_serve_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -141,7 +155,8 @@ def meta_serve_state(cfg: ModelConfig, batch: int, max_len: int,
                               dtype=torch.float32, device=META)
 
 
-def build_decode(cfg: ModelConfig, spec: ShapeSpec):
+def build_decode(cfg: ModelConfig, spec: ShapeSpec, mesh=None,
+                 wmode: str = "tp"):
     from repro_torch.serving.steps import (default_dali_config,
                                            make_decode_step, resolve_policy)
     B, S = spec.batch, spec.seq
@@ -151,15 +166,29 @@ def build_decode(cfg: ModelConfig, spec: ShapeSpec):
                                   n_cross=n_cross_for(cfg, spec))
     fn = make_decode_step(cfg, policy=policy,
                           moe_capacity=_capacity(cfg, B))
-    return cfg, fn, (meta_model(cfg), state) + ((res,) if res is not None
-                                                else ())
+    params = meta_model(cfg)
+    if mesh is not None:
+        params = lay.distribute_params(params, cfg, mesh, wmode)
+        state = dict(state, tokens=lay.distribute_batch(state["tokens"],
+                                                        mesh),
+                     caches=lay.distribute_caches(state["caches"], cfg,
+                                                  spec.name, mesh))
+    return cfg, fn, (params, state) + ((res,) if res is not None else ())
 
 
-def build(arch: str, shape: str):
-    """Returns (cfg, fn, meta_args): ``fn(*meta_args)`` runs the step on
-    the ``meta`` device."""
+def build(arch: str, shape: str, mesh=None, wmode: Optional[str] = None):
+    """Returns (cfg, fn, meta_args, wmode): ``fn(*meta_args)`` runs the
+    step on the ``meta`` device.  With a ``mesh`` the arguments are rank
+    0's local shards laid out by the specs, and ``wmode=None`` picks "tp"
+    or "fsdp" by ``weights_need_fsdp`` (as ``repro/launch/shapes.py:
+    191-199`` does); without one ``wmode`` is None."""
     cfg = get_config(arch)
     spec = SHAPES[shape]
     builder = {"train": build_train, "prefill": build_prefill,
                "decode": build_decode}[spec.kind]
-    return builder(cfg, spec)
+    if mesh is None:
+        return builder(cfg, spec) + (None,)
+    if wmode is None:
+        wmode = "fsdp" if shd.weights_need_fsdp(
+            cfg, mesh, train=spec.kind == "train") else "tp"
+    return builder(cfg, spec, mesh, wmode) + (wmode,)

@@ -47,6 +47,8 @@ import torch.nn.functional as F
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.flash_attention.ops import attn_mask as _attn_mask
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import \
+    masked_scores as _masked_scores
 from repro_torch.kernels.flash_attention.ops import mha as _mha
 from repro_torch.kernels.flash_attention.ops import pos_rows as _pos_rows
 
@@ -138,19 +140,21 @@ def _check_prefill_positions(positions):
 
 def gqa_attention(params, x, cfg: ModelConfig, *, kind: str, positions,
                   cache=None, causal: bool = True):
-    """kind in {"attn", "attn_local", "attn_global"}.  Returns (y, cache')."""
+    """kind in {"attn", "attn_local", "attn_global"}.  Returns (y, cache').
+    Under laid-out rules (``launch/sharding.py``) ``x`` is a DTensor and
+    the layer runs ``_gqa_laid``."""
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return _gqa_laid(params, x, cfg, kind=kind, positions=positions,
+                         cache=cache, causal=causal)
     a = cfg.attn
     hd = cfg.head_dim()
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, a.n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, a.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, a.n_kv_heads, hd)
-    if a.qk_norm:
-        q = rms_norm_vec(params["q_norm"], q)
-        k = rms_norm_vec(params["k_norm"], k)
-    cos, sin = rope_table(_pos_rows(positions), hd, a.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    qn, kn = _qk_norms(params, cfg)
+    rope = rope_table(_pos_rows(positions), hd, a.rope_theta)
+    q = _heads(x @ params["wq"], hd, qn, rope)
+    k = _heads(x @ params["wk"], hd, kn, rope)
+    v = _heads(x @ params["wv"], hd)
 
     window = a.sliding_window if kind == "attn_local" else 0
     scale = 1.0 / math.sqrt(hd)
@@ -171,6 +175,26 @@ def gqa_attention(params, x, cfg: ModelConfig, *, kind: str, positions,
     return y.reshape(B, S, a.n_heads * hd) @ params["wo"], cache
 
 
+def _qk_norms(params, cfg: ModelConfig):
+    """The query and key norms' weights, or (None, None) without qk-norm."""
+    if cfg.attn.qk_norm:
+        return params["q_norm"], params["k_norm"]
+    return None, None
+
+
+def _heads(t, hd: int, norm=None, rope=None):
+    """A projection (B, S, n * hd) -> heads (B, S, n, hd), RMS-normed by
+    ``norm`` and rotated by ``rope`` ((cos, sin) of ``rope_table``) where
+    given.  The plain layer calls it on every head, the laid-out one on a
+    rank's."""
+    t = t.reshape(t.shape[0], t.shape[1], -1, hd)
+    if norm is not None:
+        t = rms_norm_vec(norm, t)
+    if rope is not None:
+        t = apply_rope(t, *rope)
+    return t
+
+
 def _k3(q, k, v, cfg: ModelConfig, **kw):
     """K3 over q / k / v -> (B, Sq, Hq, D) in q's dtype.  A float32 cross
     source promotes the cross keys and values, and the encoder, to float32
@@ -185,6 +209,232 @@ def _k3(q, k, v, cfg: ModelConfig, **kw):
                            **kw)
 
 
+# --------------------------------------------------------------------------
+# the laid-out layer (DTensor inputs under launch/sharding.py::rules)
+# --------------------------------------------------------------------------
+
+def _rows(positions, x):
+    """Per-row positions (B, S) of ``x``'s local batch rows; shared (S,)
+    positions as they are."""
+    if positions.dim() == 1:
+        return positions
+    from repro_torch.launch import layout as lay
+    b0 = lay.offset(x, 0)
+    return positions[b0:b0 + x.to_local().shape[0]]
+
+
+def _kv_block(j: int, hq_loc: int, n_heads: int, n_kv: int):
+    """The KV heads [k0, k1) that query heads [j * hq_loc, (j+1) * hq_loc)
+    read: a block of n_kv / tp heads, or one head that several ranks share
+    where tp > n_kv."""
+    g = n_heads // n_kv
+    h0 = j * hq_loc
+    return h0 // g, (h0 + hq_loc - 1) // g + 1
+
+
+def _gqa_laid(params, x, cfg: ModelConfig, *, kind: str, positions, cache,
+              causal: bool):
+    """GQA on the layout: the query heads over 'model', the keys and values
+    replicated over it (the reference's hints, ``attention.py:276-281``),
+    the batch over the data axes.  K3 runs on each rank's query heads and
+    the KV heads they read (``_k3_laid``).  A cache whose sequence is
+    sharded (``cache_pspecs``' kv_seq) is written only by the rank that
+    owns each position (``_write_laid``), and decode attends over the local
+    sequence shard and combines the ranks' partial results by their
+    log-sum-exp (``_decode_laid``).  Returns (y, cache'), y ``Partial``
+    over 'model' (the row-parallel output projection)."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_size
+    from repro_torch.launch.sharding import hint
+    a = cfg.attn
+    hd = cfg.head_dim()
+    Hq = a.n_heads
+    tp = axis_size(lay.mesh(), "model")
+    if Hq % tp:
+        raise NotImplementedError(f"laid-out GQA needs the {Hq} query heads "
+                                  f"to divide over 'model' = {tp}")
+    hq_loc = Hq // tp
+    S = x.shape[1]
+    h = hint(x, "batch", "seq", "embed")
+    hp = h.placements
+    bs = tuple(lay.spec_from(hp, 3)[:2])
+    heads = lay.place(bs + ("model", None))
+    repl3 = lay.place(bs + (None,))
+    # the keys' and values' columns lie as wk's do (whole where 'model'
+    # does not divide them)
+    kvcols = lay.place(bs + (lay.spec_from(params["wk"].placements, 2)[1],))
+    qn, kn = _qk_norms(params, cfg)
+    norms = [qn] if qn is not None else []
+    pos = _rows(positions, h)
+
+    def proj(h, wq, wk, wv, *qn):
+        rope = rope_table(_pos_rows(pos), hd, a.rope_theta)
+        return (_heads(h @ wq, hd, qn[0] if qn else None, rope), h @ wk,
+                h @ wv)
+
+    ws = [params["wq"], params["wk"], params["wv"]]
+    q, k, v = lay.local_kernel(
+        proj, [hp] + [lay.gathered_weight(w) for w in ws]
+        + [lay.place((None,))] * len(norms), (heads, kvcols, kvcols))(
+            h, *ws, *norms)
+    k = hint(k, "batch", "seq", "kv_heads")
+    v = hint(v, "batch", "seq", "kv_heads")
+    window = a.sliding_window if kind == "attn_local" else 0
+    scale = 1.0 / math.sqrt(hd)
+    kn = [kn] if kn is not None else []
+
+    def rope_kv(k, v, *kn):
+        rope = rope_table(_pos_rows(pos), hd, a.rope_theta)
+        return _heads(k, hd, kn[0] if kn else None, rope), _heads(v, hd)
+
+    kv4 = lay.place(bs + (None, None))
+    k, v = lay.local_kernel(rope_kv, [repl3, repl3]
+                            + [lay.place((None,))] * len(kn),
+                            (kv4, kv4))(k, v, *kn)
+    if cache is not None:
+        cache = _write_laid(cache, positions, k=k, v=v)
+    if cache is not None and S == 1:
+        y = _decode_laid(q, cache, positions, cfg, window=window,
+                         causal=causal, scale=scale)
+        return _out_proj_laid(y, params["wo"], Hq * hd, hq_loc * hd), cache
+    _check_prefill_positions(positions)
+    y = _k3_laid(q, k, v, cfg, causal=causal, window=window,
+                 softcap=a.attn_softcap, scale=scale)
+    return _out_proj_laid(y, params["wo"], None, None), cache
+
+
+def _k3_laid(q, k, v, cfg: ModelConfig, **kw):
+    """K3 on this rank's query heads (B, S, Hq/tp, D) and the KV heads they
+    read (``_kv_block``), inside ``local_kernel`` -> (B, S, Hq/tp * D),
+    the heads over 'model'."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_index
+    a = cfg.attn
+    j = axis_index(lay.mesh(), "model")
+
+    def core(q, k, v):
+        B, S, hq_loc, hd = q.shape
+        k0, k1 = _kv_block(j, hq_loc, a.n_heads, a.n_kv_heads)
+        y = _k3(q, k[:, :, k0:k1], v[:, :, k0:k1], cfg, **kw)
+        return y.reshape(B, S, hq_loc * hd)
+
+    qp = q.placements
+    return lay.local_kernel(core, [qp, k.placements, v.placements],
+                            lay.place(tuple(lay.spec_from(qp, 4)[:2])
+                                      + ("model",)))(q, k, v)
+
+
+def _out_proj_laid(y, wo, width, loc_width):
+    """y @ wo with wo's rows over 'model' -> ``Partial`` over 'model'.
+    ``width`` set: y (B, S, width) holds every head on each rank, and each
+    rank multiplies its own ``loc_width`` columns."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_index
+    yp = y.placements
+    j = axis_index(lay.mesh(), "model")
+
+    def proj(y, wo):
+        if width is not None:
+            y = y[..., j * loc_width:(j + 1) * loc_width]
+        return y @ wo.to(y.dtype)
+
+    spec = tuple(lay.spec_from(yp, 3)[:2]) + (None,)
+    return lay.local_kernel(proj, [yp, lay.gathered_weight(wo)],
+                            lay.place(spec, partial=("model",)))(y, wo)
+
+
+def _write_laid(cache, positions, **new):
+    """Write the fresh keys / values (each (B, S, ...), the batch as the
+    cache's, the sequence whole) into the laid-out cache in place: each
+    rank writes the positions its sequence shard holds.  Decode's per-row
+    positions (B, 1) write one slot a row; a prefill's shared positions
+    are 0..S-1 (every prefill of the port), written as the slice of them
+    the shard holds."""
+    from repro_torch.launch import layout as lay
+    keys = list(new)
+    ref = cache[keys[0]]
+    S_c = ref.shape[1]
+    s0 = lay.offset(ref, 1)
+    pos_rows = _rows(positions, ref) if positions.dim() == 2 else positions
+
+    def write(*ts):
+        cs, ns, pos_c = ts[:len(keys)], ts[len(keys):-1], ts[-1]
+        n = pos_c.shape[1]
+        if pos_rows.dim() == 2:                   # decode: a slot a row
+            li = (pos_rows % S_c).long() - s0            # (B, 1)
+            own = (li >= 0) & (li < n)
+            li = li.clamp(0, n - 1)
+            b = torch.arange(li.shape[0], device=li.device)[:, None]
+            for c, t in zip(cs, ns):
+                keep = own.reshape(own.shape + (1,) * (t.dim() - 2))
+                c[b, li] = torch.where(keep, t.to(c.dtype), c[b, li])
+            pos_c[b, li] = torch.where(own, pos_rows.to(pos_c.dtype),
+                                       pos_c[b, li])
+        else:
+            S = ns[0].shape[1]
+            if S > S_c:
+                raise NotImplementedError("a laid-out prefill longer than "
+                                          "its cache")
+            lo, hi = max(s0, 0), min(s0 + n, S)
+            if lo < hi:
+                for c, t in zip(cs, ns):
+                    c[:, lo - s0:hi - s0] = t[:, lo:hi].to(c.dtype)
+                pos_c[:, lo - s0:hi - s0] = torch.arange(
+                    lo, hi, dtype=pos_c.dtype, device=pos_c.device)
+        return (*cs, pos_c)
+
+    cpl = [cache[k].placements for k in keys]
+    npl = [new[k].placements for k in keys]
+    ppl = cache["pos"].placements
+    out = lay.local_kernel(write, cpl + npl + [ppl],
+                           tuple(cpl) + (ppl,))(
+        *[cache[k] for k in keys], *[new[k] for k in keys], cache["pos"])
+    for k, t in zip(keys + ["pos"], out):
+        cache[k] = t
+    return cache
+
+
+def _decode_laid(q, cache, positions, cfg: ModelConfig, *, window: int,
+                 causal: bool, scale: float):
+    """One decode token's attention over a laid-out cache: every query
+    head on each rank (gathered over 'model'), the keys of the rank's
+    sequence shard; the partial outputs with their max and sum are
+    combined by their log-sum-exp (``_lse_combine``).  -> (B, 1, Hq * D),
+    every head on every rank."""
+    from repro_torch.launch import layout as lay
+    a = cfg.attn
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    base = lay.spec_from(kc.placements, 4)[:1]
+    qrow = lay.place(tuple(base) + (None, None, None))
+    pos = _rows(positions, kc)
+
+    def partial(q, k, v, k_pos):
+        B, Sq, Hq, D = q.shape
+        Hkv = k.shape[2]
+        s = _masked_scores(q.reshape(B, Sq, Hkv, Hq // Hkv, D), k, pos,
+                           k_pos, causal=causal, window=window,
+                           softcap=a.attn_softcap, scale=scale)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+        part = torch.cat([o, m, p.sum(-1, keepdim=True)], dim=-1)
+        return part.flatten(1, 2)[None]          # (1, B, Hq, Sq, D + 2)
+
+    part = lay.local_kernel(
+        partial, [qrow, kc.placements, vc.placements, pc.placements],
+        lay.place((_seq_axes(kc),) + tuple(base) + (None,) * 3))(
+            q, kc, vc, pc)
+    D = q.shape[-1]
+    o = _lse_combine(part, D, q.dtype, base)           # (B, Hq, Sq, D)
+
+    def heads_last(o):
+        B, H, Sq, _ = o.shape
+        return o.permute(0, 2, 1, 3).reshape(B, Sq, H * D)
+
+    return lay.local_kernel(heads_last, [o.placements],
+                            lay.place(tuple(base) + (None, None)))(o)
+
+
 def mla_attention(params, x, cfg: ModelConfig, *, positions, cache=None):
     """DeepSeek-V2's multi-head latent attention.  Returns (y, cache').
 
@@ -194,44 +444,27 @@ def mla_attention(params, x, cfg: ModelConfig, *, positions, cache=None):
     decode attends over the cache, absorbed (``wuk`` folded into the
     query, ``wuv`` applied to the latent output, float32) or, with
     ``absorbed_decode=False``, decompressed as prefill does."""
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return _mla_laid(params, x, cfg, positions=positions, cache=cache)
     a, m = cfg.attn, cfg.attn.mla
-    B, S, _ = x.shape
+    S = x.shape[1]
     H = a.n_heads
     nope, rp, vd, R = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                        m.v_head_dim, m.kv_lora_rank)
-    if m.q_lora_rank:
-        cq = rms_norm_vec(params["q_norm"], x @ params["wdq"])
-        q = (cq @ params["wq"]).reshape(B, S, H, nope + rp)
-    else:
-        q = (x @ params["wq"]).reshape(B, S, H, nope + rp)
-    q_nope, q_pe = q[..., :nope], q[..., nope:]
-
-    dkv = x @ params["wdkv"]
-    ckv = rms_norm_vec(params["ckv_norm"], dkv[..., :R])        # (B, S, R)
-    kpe = dkv[..., R:][:, :, None, :]                           # (B,S,1,rp)
-    cos, sin = rope_table(_pos_rows(positions), rp, a.rope_theta)
-    q_pe = apply_rope(q_pe, cos, sin)
-    kpe = apply_rope(kpe, cos, sin)
+    q_nope, q_pe, ckv, kpe = _mla_project(params, x, cfg, positions)
     scale = 1.0 / math.sqrt(nope + rp)
 
     if cache is not None and S == 1:
         cache = _update_cache(cache, positions, ckv=ckv, kpe=kpe[:, :, 0])
         ckv_all, kpe_all, k_pos = cache["ckv"], cache["kpe"], cache["pos"]
         if m.absorbed_decode:
-            wuk = params["wuk"].reshape(R, H, nope).float()
-            q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), wuk)
-            ckv_f = ckv_all.float()                             # (B, S_c, R)
-            s = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv_f)
-            s = s + torch.einsum("bqhp,bsp->bhqs", q_pe.float(),
-                                 kpe_all.float())
-            s = s / math.sqrt(nope + rp)
-            valid = _attn_mask(positions, k_pos, causal=True, window=0)
-            s = torch.where(valid[:, None], s, NEG_INF)
+            q_lat = _mla_fold(q_nope, params["wuk"], R)
+            s = _mla_scores(q_lat, q_pe, ckv_all, kpe_all, positions, k_pos,
+                            nope + rp)
             p = torch.softmax(s, dim=-1)                        # (B,H,1,S_c)
-            o_lat = torch.einsum("bhqs,bsr->bqhr", p, ckv_f)
-            wuv = params["wuv"].reshape(R, H, vd).float()
-            y = torch.einsum("bqhr,rhv->bqhv", o_lat, wuv)
-            y = y.reshape(B, S, H * vd).to(x.dtype)
+            o_lat = torch.einsum("bhqs,bsr->bqhr", p, ckv_all.float())
+            y = _mla_unfold(o_lat, params["wuv"], R).to(x.dtype)
             return y @ params["wo"], cache
         k, v = _mla_decompress(params, ckv_all, kpe_all[:, :, None], H, nope,
                                rp, vd)
@@ -245,13 +478,74 @@ def mla_attention(params, x, cfg: ModelConfig, *, positions, cache=None):
     _check_prefill_positions(positions)
     if cache is not None:
         cache = _update_cache(cache, positions, ckv=ckv, kpe=kpe[:, :, 0])
+    y = _mla_prefill(q_nope, q_pe, ckv, kpe, params, cfg, scale)
+    return y @ params["wo"], cache
+
+
+def _mla_project(params, x, cfg: ModelConfig, positions):
+    """MLA's projections: the queries of the heads ``wq`` holds (every
+    head, or a rank's) split into their (B, S, h, nope) and rotated (B, S,
+    h, rp) parts, the normalised latent ``ckv`` (B, S, R) and the rotated
+    shared key ``kpe`` (B, S, 1, rp)."""
+    a, m = cfg.attn, cfg.attn.mla
+    nope, rp, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    B, S, _ = x.shape
+    if m.q_lora_rank:
+        cq = rms_norm_vec(params["q_norm"], x @ params["wdq"])
+        q = (cq @ params["wq"]).reshape(B, S, -1, nope + rp)
+    else:
+        q = (x @ params["wq"]).reshape(B, S, -1, nope + rp)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+
+    dkv = x @ params["wdkv"]
+    ckv = rms_norm_vec(params["ckv_norm"], dkv[..., :R])        # (B, S, R)
+    kpe = dkv[..., R:][:, :, None, :]                           # (B,S,1,rp)
+    cos, sin = rope_table(_pos_rows(positions), rp, a.rope_theta)
+    return q_nope, apply_rope(q_pe, cos, sin), ckv, apply_rope(kpe, cos, sin)
+
+
+def _mla_prefill(q_nope, q_pe, ckv, kpe, params, cfg: ModelConfig, scale):
+    """K3 over the fresh latents: ``ckv`` (B, S, R) and ``kpe`` (B, S, 1,
+    rp) decompressed by ``params``' ``wuk`` / ``wuv`` to the keys and values
+    of the queries' h heads -> (B, S, h * vd)."""
+    m = cfg.attn.mla
+    nope, rp, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    B, S, H = q_nope.shape[:3]
     k, v = _mla_decompress(params, ckv, kpe, H, nope, rp, vd)
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     # K3 has one head width: the values are zero-padded to the keys' and
     # the padded output columns (zero) are dropped
     v = F.pad(v, (0, nope + rp - vd))
     y = flash_attention(q_full, k, v, causal=True, scale=scale)[..., :vd]
-    return y.reshape(B, S, H * vd) @ params["wo"], cache
+    return y.reshape(B, S, H * vd)
+
+
+def _mla_fold(q_nope, wuk, R: int):
+    """The absorbed decode's latent queries: ``wuk`` (R, h * nope) folded
+    into q_nope (B, Sq, h, nope) -> (B, Sq, h, R) float32."""
+    h, nope = q_nope.shape[2:]
+    return torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                        wuk.reshape(R, h, nope).float())
+
+
+def _mla_scores(q_lat, q_pe, ckv, kpe, q_pos, k_pos, width: int):
+    """The absorbed decode's float32 scores (B, h, Sq, S_c) of the latent
+    and rotary queries over cached latents (B, S_c, R) and rotary keys (B,
+    S_c, rp), causal by position, NEG_INF where masked."""
+    s = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv.float())
+    s = s + torch.einsum("bqhp,bsp->bhqs", q_pe.float(), kpe.float())
+    s = s / math.sqrt(width)
+    valid = _attn_mask(q_pos, k_pos, causal=True, window=0)
+    return torch.where(valid[:, None], s, NEG_INF)
+
+
+def _mla_unfold(o_lat, wuv, R: int):
+    """The absorbed decode's latent output (B, Sq, h, R) float32 through
+    ``wuv`` (R, h * vd) -> (B, Sq, h * vd) float32."""
+    B, Sq, h, _ = o_lat.shape
+    y = torch.einsum("bqhr,rhv->bqhv", o_lat,
+                     wuv.reshape(R, h, -1).float())
+    return y.reshape(B, Sq, -1)
 
 
 def _mla_decompress(params, ckv, kpe, H, nope, rp, vd):
@@ -263,6 +557,139 @@ def _mla_decompress(params, ckv, kpe, H, nope, rp, vd):
     k = torch.cat([k_nope, kpe.expand(B, Sk, H, rp).to(k_nope.dtype)],
                   dim=-1)
     return k, v
+
+
+def _mla_laid(params, x, cfg: ModelConfig, *, positions, cache):
+    """MLA on the layout: the query heads (``wq``, ``wuk``, ``wuv``) over
+    'model', the latent and rotary key (``wdkv``) computed whole on each
+    rank.  Prefill decompresses each rank's heads and runs K3 on them;
+    the cache's latents lie with the sequence sharded (written by
+    ``_write_laid``); the absorbed decode gathers every head's latent
+    query, attends over the rank's sequence shard and combines the
+    partials by their log-sum-exp (``_lse_combine``).  -> (y ``Partial``
+    over 'model', cache')."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_size
+    from repro_torch.launch.sharding import hint
+    m = cfg.attn.mla
+    H = cfg.attn.n_heads
+    tp = axis_size(lay.mesh(), "model")
+    if H % tp or not m.absorbed_decode:
+        raise NotImplementedError(f"laid-out MLA needs the {H} heads to "
+                                  f"divide over 'model' = {tp} and the "
+                                  "absorbed decode")
+    S = x.shape[1]
+    h = hint(x, "batch", "seq", "embed")
+    bs = tuple(lay.spec_from(h.placements, 3)[:2])
+    pos = _rows(positions, h)
+    qk = ["wdq", "q_norm"] if m.q_lora_rank else []
+    names = qk + ["wq", "wdkv", "ckv_norm"]
+
+    def proj(h, *ws):
+        q_nope, q_pe, ckv, kpe = _mla_project(dict(zip(names, ws)), h, cfg,
+                                              pos)
+        return q_nope.contiguous(), q_pe, ckv, kpe[:, :, 0]
+
+    heads = lay.place(bs + ("model", None))
+    whole = lay.place(bs + (None,))
+    ws = [params[k] for k in names]
+    q_nope, q_pe, ckv, kpe = lay.local_kernel(
+        proj, [h.placements] + [lay.gathered_weight(w) for w in ws],
+        (heads, heads, whole, whole))(h, *ws)
+    if cache is not None:
+        cache = _write_laid(cache, positions, ckv=ckv, kpe=kpe)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    wuk, wuv = params["wuk"], params["wuv"]
+    if cache is not None and S == 1:
+        y = _mla_decode_laid(q_nope, q_pe, cache, positions, wuk, wuv, cfg)
+        return _out_proj_laid(y, params["wo"], None, None), cache
+    _check_prefill_positions(positions)
+
+    def core(q_nope, q_pe, ckv, kpe, wuk, wuv):
+        return _mla_prefill(q_nope, q_pe, ckv, kpe[:, :, None],
+                            {"wuk": wuk, "wuv": wuv}, cfg, scale)
+
+    y = lay.local_kernel(
+        core, [heads, heads, whole, whole, lay.gathered_weight(wuk),
+               lay.gathered_weight(wuv)],
+        lay.place(bs + ("model",)))(q_nope, q_pe, ckv, kpe, wuk, wuv)
+    return _out_proj_laid(y, params["wo"], None, None), cache
+
+
+def _lse_combine(part, D: int, out_dtype, base):
+    """Partial attention results (n, B, H, Sq, D + 2): each shard's
+    unnormalised output, max and sum, all-gathered over the axes that shard
+    the sequence (dim 0) -> their log-sum-exp combination (B, H, Sq, D)."""
+    from repro_torch.launch import layout as lay
+
+    def combine(part):
+        o, m, l = part[..., :D], part[..., D:D + 1], part[..., D + 1:]
+        mx = m.amax(0, keepdim=True)
+        w = torch.exp(m - mx)
+        return ((o * w).sum(0) / (l * w).sum(0).clamp(min=1e-30)).to(
+            out_dtype)
+
+    nd = part.dim()
+    return lay.local_kernel(
+        combine, [lay.place((None,) + tuple(base) + (None,) * (nd - 2))],
+        lay.place(tuple(base) + (None,) * (nd - 2)))(part)
+
+
+def _seq_axes(t):
+    """The mesh axes that shard a cache tensor's sequence (dim 1)."""
+    from repro_torch.launch import layout as lay
+    from torch.distributed.tensor import Shard
+    names = lay.mesh().mesh_dim_names
+    axes = [names[m] for m, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+    return tuple(axes) if len(axes) > 1 else axes[0] if axes else None
+
+
+def _mla_decode_laid(q_nope, q_pe, cache, positions, wuk, wuv,
+                     cfg: ModelConfig):
+    """The absorbed decode over a laid-out latent cache: each rank folds
+    ``wuk`` into its heads' queries, every head's latent query is gathered
+    over 'model', each rank attends over its sequence shard, the partials
+    are combined (``_lse_combine``), and each rank applies ``wuv`` to its
+    heads' latent output -> (B, 1, H/tp * vd), the heads over 'model'."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_index
+    m = cfg.attn.mla
+    R, vd = m.kv_lora_rank, m.v_head_dim
+    width = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ckv_c, kpe_c, pc = cache["ckv"], cache["kpe"], cache["pos"]
+    base = lay.spec_from(ckv_c.placements, 3)[:1]
+    heads = q_nope.placements
+
+    q_lat = lay.local_kernel(lambda q, w: _mla_fold(q, w, R),
+                             [heads, lay.gathered_weight(wuk)],
+                             heads)(q_nope, wuk)
+    pos = _rows(positions, ckv_c)
+    allh = lay.place(tuple(base) + (None, None, None))
+
+    def partial(q_lat, q_pe, ckv, kpe, k_pos):
+        s = _mla_scores(q_lat, q_pe, ckv, kpe, pos, k_pos, width)
+        mx = s.amax(-1, keepdim=True)
+        p = torch.exp(s - mx)
+        o = torch.einsum("bhqs,bsr->bhqr", p, ckv.float())
+        return torch.cat([o, mx, p.sum(-1, keepdim=True)], dim=-1)[None]
+
+    part = lay.local_kernel(
+        partial, [allh, allh, ckv_c.placements, kpe_c.placements,
+                  pc.placements],
+        lay.place((_seq_axes(ckv_c),) + tuple(base) + (None,) * 3))(
+            q_lat, q_pe, ckv_c, kpe_c, pc)
+    o_lat = _lse_combine(part, R, torch.float32, base)   # (B, H, 1, R)
+    j = axis_index(lay.mesh(), "model")
+
+    def expand(o_lat, wuv):
+        hl = wuv.shape[1] // vd
+        o = o_lat[:, j * hl:(j + 1) * hl].permute(0, 2, 1, 3)
+        return _mla_unfold(o, wuv, R).to(q_nope.dtype)
+
+    return lay.local_kernel(
+        expand, [o_lat.placements, lay.gathered_weight(wuv)],
+        lay.place(tuple(base) + (None, "model")))(o_lat, wuv)
 
 
 # --------------------------------------------------------------------------

@@ -78,6 +78,11 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                 moe_capacity: Optional[int] = None,
                 slots=None, slot_fetch=None, slot_live=None,
                 slot_phase: str = "decode"):
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return _apply_block_laid(params, x, cfg, kinds, positions=positions,
+                                 cache=cache, causal=causal,
+                                 moe_capacity=moe_capacity)
     mixer_kind, mlp_kind = kinds
     moe_info = None
     h = apply_norm(params["norm1"], x, cfg)
@@ -120,6 +125,50 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
         if cfg.post_block_norm:
             y = apply_norm(params["norm2_post"], y, cfg)
         x = x + y
+    return x, cache, moe_info
+
+
+def _apply_block_laid(params, x, cfg: ModelConfig, kinds, *, positions,
+                      cache, causal: bool, moe_capacity):
+    """``apply_block`` on the layout: the residual stream ``x`` lies as the
+    reference hints it ("batch", "res_seq", "embed"); each mixer's and
+    MLP's output (``Partial`` over 'model') is reduced back to it there."""
+    from repro_torch.launch.layout import add
+    from repro_torch.launch.sharding import hint
+
+    from .layers import mlp_laid, norm_laid
+    mixer_kind, mlp_kind = kinds
+    if mixer_kind in ("cross", "self_cross"):
+        raise NotImplementedError(f"the laid-out model has no {mixer_kind} "
+                                  "layer")
+    res = ("batch", "res_seq", "embed")
+    moe_info = None
+    h = norm_laid(params["norm1"], x, cfg)
+    if mixer_kind == "mamba":
+        y, cache = apply_mamba(params["mixer"], h, cfg, cache)
+    elif cfg.attn.mla is not None:
+        y, cache = mla_attention(params["mixer"], h, cfg,
+                                 positions=positions, cache=cache)
+    else:
+        y, cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
+                                 positions=positions, cache=cache,
+                                 causal=causal)
+    y = hint(y, *res)
+    if cfg.post_block_norm:
+        y = norm_laid(params["norm1_post"], y, cfg)
+    x = add(x, y)
+    if mlp_kind != "none":
+        h = norm_laid(params["norm2"], x, cfg)
+        if mlp_kind == "moe":
+            y, moe_info = apply_moe(params["mlp"], h, cfg,
+                                    capacity=moe_capacity)
+        else:
+            y = mlp_laid(params["mlp"], hint(h, "batch", "seq", "embed"),
+                         cfg)
+        y = hint(y, *res)
+        if cfg.post_block_norm:
+            y = norm_laid(params["norm2_post"], y, cfg)
+        x = add(x, y)
     return x, cache, moe_info
 
 

@@ -136,12 +136,19 @@ def embed(params, tokens, cfg: ModelConfig):
     return x
 
 
-def unembed(params, x, cfg: ModelConfig):
-    w = params["tok"].T if cfg.tie_embeddings else params["head"]
+def head_logits(x, w, cfg: ModelConfig):
+    """x @ w in x's dtype -> float32 logits, soft-capped where the config
+    says (the head's columns: every vocab row, or a rank's)."""
     logits = (x @ w.to(x.dtype)).float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def unembed(params, x, cfg: ModelConfig):
+    w = params["tok"].T if cfg.tie_embeddings else params["head"]
+    logits = head_logits(x, w, cfg)
     # vocab padded to a multiple of 256 as in the reference; the padded
     # columns hold -1e30 (never sampled, zero softmax mass)
     pad = (-w.shape[-1]) % 256
@@ -149,3 +156,72 @@ def unembed(params, x, cfg: ModelConfig):
         logits = torch.cat([logits, logits.new_full(
             logits.shape[:-1] + (pad,), -1e30)], dim=-1)
     return logits
+
+
+# --------------------------------------------------------------------------
+# the laid-out layers (DTensor inputs under launch/sharding.py::rules)
+# --------------------------------------------------------------------------
+
+def norm_laid(params, x, cfg: ModelConfig):
+    """``apply_norm`` on each rank's tokens (the weight replicated)."""
+    from repro_torch.launch import layout as lay
+    ws = [params["w"]] if "w" in params else []
+    return lay.local_kernel(
+        lambda x, *w: apply_norm(dict(zip(("w",), w)), x, cfg),
+        [x.placements] + [lay.place((None,))] * len(ws),
+        x.placements)(x, *ws)
+
+
+def mlp_laid(params, x, cfg: ModelConfig):
+    """The dense FFN with its hidden dim over 'model' (column-parallel up /
+    gate, row-parallel down): x (B, S, d), the batch as it lies and the
+    sequence whole (gathered over 'model' in training) -> ``Partial`` over
+    'model'."""
+    from repro_torch.launch import layout as lay
+    keys = sorted(params)
+    b = lay.spec_from(x.placements, 3)[0]
+    rows = lay.place((b, None, None))
+    return lay.local_kernel(
+        lambda x, *ws: apply_mlp(dict(zip(keys, ws)), x, cfg),
+        [rows] + [lay.gathered_weight(params[k]) for k in keys],
+        lay.place((b, None, None), partial=("model",)))(
+            x, *[params[k] for k in keys])
+
+
+def embed_laid(params, tokens, cfg: ModelConfig):
+    """The embedding with its vocab rows over 'model': each rank looks up
+    the ids its rows hold (zero elsewhere) -> ``Partial`` over 'model'."""
+    from repro_torch.launch import layout as lay
+    tok = params["tok"]
+    v0 = lay.offset(tok, 0)
+
+    def look(ids, w):
+        ids = ids.long() - v0
+        own = (ids >= 0) & (ids < w.shape[0])
+        x = embed({"tok": w}, ids.clamp(0, w.shape[0] - 1), cfg)
+        return torch.where(own[..., None], x, 0)
+
+    b = lay.spec_from(tokens.placements, 2)
+    return lay.local_kernel(
+        look, [tokens.placements, lay.gathered_weight(tok)],
+        lay.place(tuple(b) + (None,), partial=("model",)))(tokens, tok)
+
+
+def unembed_laid(params, x, cfg: ModelConfig):
+    """Logits (B, S, V) float32 with the vocab over 'model' (the
+    column-parallel head, or the tied table's rows).  The vocab's own
+    columns only: the pad columns of ``unembed`` (-1e30) take no softmax
+    mass and are never an argmax, and are left off."""
+    from repro_torch.launch import layout as lay
+    tied = cfg.tie_embeddings
+    w = params["tok"] if tied else params["head"]
+    b = lay.spec_from(x.placements, 3)[0]
+
+    def head(x, w):
+        return head_logits(x, w.T if tied else w, cfg)
+
+    wspec = lay.spec_from(w.placements, 2)
+    vocab = wspec[0] if tied else wspec[1]
+    return lay.local_kernel(
+        head, [lay.place((b, None, None)), lay.gathered_weight(w)],
+        lay.place((b, None, vocab)))(x, w)

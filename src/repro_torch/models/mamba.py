@@ -158,16 +158,40 @@ def ssd_decode(xh, dt, A, Bm, Cm, state):
 
 def _gated_norm(w, y, z, eps=1e-6):
     """RMSNorm(y * silu(z)) — mamba2's norm-after-gate."""
-    yf = y.float() * F.silu(z.float())
-    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + eps)
-    return yf * (1.0 + w.float())
+    u = _gate(y, z)
+    return _norm(w, u, (u * u).mean(-1, keepdim=True), eps)
+
+
+def _gate(y, z):
+    """The gated norm's input y * silu(z), float32."""
+    return y.float() * F.silu(z.float())
+
+
+def _norm(w, u, ms, eps=1e-6):
+    """The gated norm's output from the gate ``u`` and its mean square
+    ``ms`` over every channel (a sum over ranks where the channels are
+    laid out)."""
+    return u * torch.rsqrt(ms + eps) * (1.0 + w.float())
 
 
 def apply_mamba(params, x, cfg: ModelConfig, cache=None):
     """x (B,S,d).  cache None -> full-sequence SSD; cache + S>1 -> prefill
     from the cached conv window and state; cache + S==1 -> recurrent
-    decode.  Returns (y (B,S,d), cache), the cache written in place."""
-    mb, d_in, H, P, G, N = _dims(cfg)
+    decode.  Returns (y (B,S,d), cache), the cache written in place.
+    Under laid-out rules ``x`` is a DTensor and ``_mamba_laid`` runs."""
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return _mamba_laid(params, x, cfg, cache)
+    y, z = _ssm(params, x, cfg, cache, _dims(cfg))
+    y = _gated_norm(params["norm_w"], y, z)
+    return y.to(x.dtype) @ params["out_proj"], cache
+
+
+def _ssm(params, x, cfg: ModelConfig, cache, dims):
+    """The layer up to its gated norm, over ``dims`` (``_dims``' tuple, or
+    a rank's share of the heads and channels): -> (y (B,S,d_in) float32,
+    z), the cache written in place."""
+    mb, d_in, H, P, G, N = dims
     B, S, _ = x.shape
     z = x @ params["wz"]
     xs_r = x @ params["wx"]
@@ -218,8 +242,67 @@ def apply_mamba(params, x, cfg: ModelConfig, cache=None):
         for key, t in (("conv_x", wx_), ("conv_B", wB_), ("conv_C", wC_)):
             cache[key].copy_(t[:, 1:])
 
-    y = _gated_norm(params["norm_w"], y, z)
-    return y.to(x.dtype) @ params["out_proj"], cache
+    return y, z
+
+
+def _mamba_laid(params, x, cfg: ModelConfig, cache):
+    """The Mamba-2 layer on the layout (the reference's hints,
+    ``mamba.py:168-169``): the inner channels and the heads over 'model'
+    (``param_pspecs`` / ``cache_pspecs``), B and C replicated (one group).
+    Each rank runs the SSD over its heads inside ``local_kernel``; the
+    gated norm's mean square over every channel is summed over 'model';
+    the row-parallel output projection is ``Partial`` over 'model'."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_index, axis_size
+    from repro_torch.launch.sharding import hint
+    mb, d_in, H, P, G, N = _dims(cfg)
+    tp = axis_size(lay.mesh(), "model")
+    if G != 1 or H % tp:
+        raise NotImplementedError(f"laid-out Mamba needs one group and the "
+                                  f"{H} heads to divide over 'model' = {tp}")
+    hl = H // tp
+    h0 = axis_index(lay.mesh(), "model") * hl
+    dims = (mb, d_in // tp, hl, P, G, N)
+    h = hint(x, "batch", "seq", "embed")
+    bspec = lay.spec_from(h.placements, 3)[:2]
+    names = ("wz", "wx", "wB", "wC", "wdt", "conv_x", "conv_B", "conv_C",
+             "conv_bx", "conv_bB", "conv_bC", "dt_bias", "A_log", "D")
+    ckeys = sorted(cache) if cache is not None else []
+
+    def core(h, *ts):
+        p = dict(zip(names, ts[:len(names)]))
+        c = dict(zip(ckeys, ts[len(names):])) or None
+        p["wdt"] = p["wdt"][:, h0:h0 + hl]
+        for k in ("dt_bias", "A_log", "D"):
+            p[k] = p[k][h0:h0 + hl]
+        u = _gate(*_ssm(p, h, cfg, c, dims))
+        return (u, (u * u).sum(-1, keepdim=True)) + tuple(
+            c[k] for k in ckeys)
+
+    ws = [params[k] for k in names]
+    cs = [cache[k] for k in ckeys]
+    out = lay.local_kernel(
+        core, [h.placements] + [lay.gathered_weight(w) for w in ws]
+        + [c.placements for c in cs],
+        (lay.place(tuple(bspec) + ("model",)),
+         lay.place(tuple(bspec) + (None,), partial=("model",)))
+        + tuple(c.placements for c in cs))(h, *ws, *cs)
+    u, ss = out[0], out[1]
+    if cache is not None:
+        cache = dict(cache, **dict(zip(ckeys, out[2:])))
+    ss = ss.redistribute(ss.device_mesh, lay.place(tuple(bspec) + (None,)))
+
+    def norm_out(u, ss, w, wo):
+        return _norm(w, u, ss / d_in).to(x.dtype) @ wo
+
+    wo = params["out_proj"]
+    y = lay.local_kernel(
+        norm_out, [u.placements, ss.placements,
+                   lay.gathered_weight(params["norm_w"]),
+                   lay.gathered_weight(wo)],
+        lay.place(tuple(bspec) + (None,), partial=("model",)))(
+            u, ss, params["norm_w"], wo)
+    return y, cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device, dtype=None):

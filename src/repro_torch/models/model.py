@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import pinned_empty, resolve_device, torch_dtype
+from repro_torch.launch.layout import local_kernel, unstack
 from repro_torch.tree import tree_map, tree_map_with_path
 
 from .blocks import apply_block, init_block, init_block_cache
@@ -232,10 +233,16 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     ``slot_fetch`` (the store) switch MoE layers to the physical-offload
     slot path; ``slot_live`` (B,) bool marks live batch slots (decode) and
     ``slot_phase`` ("decode" | "prefill") picks the slot regime."""
+    from repro_torch.launch.sharding import hint, layout_active
+    laid = layout_active()
     prefix_pat, period_pat, n_super = scan_pattern(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    if laid and (cross_src is not None or expert_slots is not None
+                 or cfg.encoder is not None):
+        raise NotImplementedError("the laid-out model runs without a cross "
+                                  "source, an encoder or a slot pool")
     if cross_src is not None:
         cross_src = torch.as_tensor(cross_src, device=tokens.device)
         src_dt = (torch.float32 if cross_src.dtype == torch.float64
@@ -244,7 +251,14 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
             src_dt, torch_dtype(cfg.dtype)))
         if cfg.encoder is not None:
             cross_src = apply_encoder(params["encoder"], cross_src, cfg)
-    x = embed(params["embed"], tokens, cfg)
+    if laid:
+        # the laid-out model (launch/sharding.py::rules): DTensor inputs,
+        # the residual stream as the reference hints it (model.py:135)
+        from .layers import embed_laid
+        x = hint(embed_laid(params["embed"], tokens, cfg),
+                 "batch", "res_seq", "embed")
+    else:
+        x = embed(params["embed"], tokens, cfg)
 
     slot_kw = dict(cross_src=cross_src, slot_fetch=slot_fetch,
                    slot_live=slot_live, slot_phase=slot_phase)
@@ -258,12 +272,17 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
                                  **slot_kw)
         infos.append(_trim_info(info, trace))
 
+    # laid out, each stacked leaf is indexed on its local tensor (unstack)
+    scan_p = tree_map(unstack, params["scan"]) if laid else params["scan"]
+    scan_c = (None if caches is None else tree_map(unstack, caches["scan"])
+              if laid else caches["scan"])
+
     def super_block(x, s):
         """The period's blocks of super-block ``s`` -> (x, their infos)."""
         out = []
         for p, kinds in enumerate(period_pat):
-            p_slice = tree_map(lambda a: a[s], params["scan"][p])
-            c = (tree_map(lambda a: a[s], caches["scan"][p])
+            p_slice = tree_map(lambda a: a[s], scan_p[p])
+            c = (tree_map(lambda a: a[s], scan_c[p])
                  if caches is not None else None)
             sl = (expert_slots["scan"][p][s]
                   if expert_slots is not None
@@ -272,6 +291,7 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
                                      positions=positions, cache=c,
                                      moe_capacity=moe_capacity, slots=sl,
                                      **slot_kw)
+            x = hint(x, "batch", "res_seq", "embed")       # model.py:182
             out.append(_trim_info(info, trace))
         return x, out
 
@@ -302,7 +322,20 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     if logit_index is not None:
         x = x[:, logit_index:logit_index + 1]
     elif last_logit_only:
-        x = x[:, -1:]
+        x = x[:, -1:] if not laid else local_kernel(
+            lambda t: t[:, -1:], [x.placements], x.placements)(
+                hint(x, "batch", "seq", "embed"))
+    if laid:
+        from .layers import norm_laid, unembed_laid
+        x = norm_laid(params["final_norm"], x, cfg)
+        logits = hint(unembed_laid(params["embed"],
+                                   hint(x, "batch", "seq", "embed"), cfg),
+                      "batch", "seq", "vocab")             # model.py:200
+        if logits.shape[1] == 1:
+            # a serving step's one position: the vocab gathered, so that its
+            # argmax or draw runs on every rank's whole row
+            logits = hint(logits, "batch", "seq", None)
+        return logits, caches, infos
     x = apply_norm(params["final_norm"], x, cfg)
     logits = unembed(params["embed"], x, cfg)
     return logits, caches, infos
@@ -316,8 +349,7 @@ def collect_moe_scalars(infos):
     """Sum the aux / z losses and the drops over every MoE block (prefix and
     scanned stacks), in the reference's order (0-d CPU zeros without MoE
     blocks; they add to a tensor on any device)."""
-    aux = z = torch.zeros((), dtype=torch.float32)
-    dropped = torch.zeros((), dtype=torch.int32)
+    aux = z = dropped = 0
     for info in infos:
         if info is None:
             continue
@@ -327,7 +359,11 @@ def collect_moe_scalars(infos):
             aux = aux + sub["aux_loss"].sum()
             z = z + sub["z_loss"].sum()
             dropped = dropped + sub["dropped"].sum().to(torch.int32)
-    return {"aux_loss": aux, "z_loss": z, "dropped": dropped}
+    zero = lambda v, dt: (torch.zeros((), dtype=dt) if isinstance(v, int)
+                          else v)
+    return {"aux_loss": zero(aux, torch.float32),
+            "z_loss": zero(z, torch.float32),
+            "dropped": zero(dropped, torch.int32)}
 
 
 def collect_workloads(infos):
@@ -375,8 +411,12 @@ def collect_policy_obs(params, infos, cfg: ModelConfig, token_mask=None,
     real traffic."""
     from repro_torch.core.engine import masked_workloads
     from repro_torch.core.policy import Observation
+    from repro_torch.launch.layout import gather
+    # the laid-out model's observables and routers: replicated plain
+    # tensors, as the policy computes on one device
+    infos = gather(infos)
     gate_in = collect_field(infos, "gate_in")               # (L, T, d)
-    routers = stack_routers(params, cfg)                    # (L, d, E)
+    routers = gather(stack_routers(params, cfg))            # (L, d, E)
     if token_mask is not None:
         topk = collect_field(infos, "topk_idx")             # (L, T, K)
         workloads = masked_workloads(topk, cfg.moe.n_routed, token_mask)

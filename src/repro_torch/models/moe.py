@@ -241,18 +241,37 @@ def _combine_topk(ys, gates):
     return (ys.reshape(T, K, -1) * gates.to(ys.dtype)[..., None]).sum(1)
 
 
-def grouped_expert_ffn(params, xf, idx, gates, cfg: ModelConfig):
+def grouped_expert_ffn(params, xf, idx, gates, cfg: ModelConfig,
+                       e0: Optional[int] = None):
     """Sparse decode path: one K2 row group per activated (token, k) slot,
     weights read by expert index (no gathered copies).  xf (T, d),
-    idx/gates (T, K) -> combined output (T, d)."""
+    idx/gates (T, K) -> combined output (T, d).  ``e0``: the stacks hold
+    experts [e0, e0 + E_l) of the layer (a rank's own, laid out), and rows
+    routed to others contribute zero."""
     T, d = xf.shape
     K = idx.shape[1]
     xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()  # (T*K,1,d)
-    ones = torch.ones((T * K,), dtype=torch.int32, device=xf.device)
+    ids = idx.reshape(-1)
+    if e0 is None:
+        counts = torch.ones((T * K,), dtype=torch.int32, device=xf.device)
+    else:
+        e_l = params["gate"].shape[0]
+        counts = ((ids >= e0) & (ids < e0 + e_l)).to(torch.int32)
+        ids = (ids - e0).clamp(0, e_l - 1).to(torch.int32)
     ys = expert_ffn(xs, params["gate"], params["up"], params["down"],
-                    counts=ones, expert_ids=idx.reshape(-1).contiguous(),
-                    act=cfg.act)
+                    counts=counts, expert_ids=ids.contiguous(), act=cfg.act)
     return _combine_topk(ys[:, 0], gates)
+
+
+def _bucket_rows(ye, se, rank, inv, keep, e0: int = 0):
+    """Each (token, k) row's expert output, in token order (T * K, d):
+    bucket row ``rank`` of expert ``se`` in ``ye`` (E_l, C_l, d), the
+    buckets of experts [e0, e0 + E_l), zero where not ``keep`` (dropped,
+    padded, or another rank's expert)."""
+    E_l, C_l = ye.shape[:2]
+    contrib = ye[(se - e0 if e0 else se).clamp(0, E_l - 1),
+                 rank.clamp(0, C_l - 1)]
+    return torch.where(keep[:, None], contrib, 0)[inv]
 
 
 def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
@@ -490,7 +509,14 @@ def apply_moe(params, x, cfg: ModelConfig, *,
     if force_path not in (None, "dense", "sparse"):
         raise ValueError(f"force_path must be None|'dense'|'sparse', "
                          f"got {force_path!r}")
+    from repro_torch.launch.sharding import layout_active
+
     from .moe_ep import apply_moe_ep, ep_applicable
+    if layout_active():
+        if slots is not None or valid is not None or force_path is not None:
+            raise NotImplementedError("the laid-out MoE layer runs the "
+                                      "full-resident paths")
+        return _moe_laid(params, x, cfg, capacity=capacity)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -548,8 +574,7 @@ def apply_moe(params, x, cfg: ModelConfig, *,
         else:
             ye = expert_ffn_dense(params, xe, cfg, counts=counts)  # (E,C,d)
         keep_s = (rank < C) & (se < E)
-        contrib = ye[se.clamp(0, E - 1), rank.clamp(0, C - 1)]
-        contrib = torch.where(keep_s[:, None], contrib, 0)[inv]
+        contrib = _bucket_rows(ye, se, rank, inv, keep_s)
         if host_need is not None and host_need.any():
             # the CPU tier at (token, k)-row granularity: host rows replace
             # their (zero) device contributions under the same drops;
@@ -563,8 +588,7 @@ def apply_moe(params, x, cfg: ModelConfig, *,
             host_miss = ~torch.from_numpy(host_hit).to(x.device)
             contrib = torch.where((host_miss & keep_s[inv])[:, None],
                                   ys_host.to(contrib.dtype), contrib)
-        y = (contrib.reshape(T, K, d)
-             * gates.to(contrib.dtype)[..., None]).sum(1)
+        y = _combine_topk(contrib, gates)
         dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)
     y = y.to(x.dtype)
     if m.n_shared:
@@ -593,3 +617,178 @@ def apply_moe(params, x, cfg: ModelConfig, *,
         "dropped": dropped,
     }
     return y.reshape(B, S, d), info
+
+
+# --------------------------------------------------------------------------
+# the laid-out layer (DTensor inputs under launch/sharding.py::rules)
+# --------------------------------------------------------------------------
+
+def _flat_tokens(*ts):
+    """(B, S, ...) DTensors -> (B * S, ...) over the same mesh axes, each
+    rank's block flattened in place (the global order is rank-major where
+    the sequence is sharded too)."""
+    from repro_torch.launch import layout as lay
+    pls = [t.placements for t in ts]
+    out = []
+    for t, pl in zip(ts, pls):
+        spec = lay.spec_from(pl, t.dim())
+        axes = [a for a in spec[:2] if a is not None]
+        flat = tuple(x for a in axes
+                     for x in (a if isinstance(a, tuple) else (a,)))
+        tok = None if not flat else flat[0] if len(flat) == 1 else flat
+        out_pl = lay.place((tok,) + tuple(spec[2:]))
+        out.append(lay.local_kernel(
+            lambda t: t.reshape((-1,) + tuple(t.shape[2:])), [pl],
+            out_pl)(t))
+    return out
+
+
+def _moe_laid(params, x, cfg: ModelConfig, *, capacity):
+    """The MoE layer on the layout.  ``x`` (B, S, d) lies with the batch
+    over the data axes and, in training, the sequence over 'model'.
+
+    * K1 routes each rank's own tokens (``route``) inside
+      ``local_kernel``; the per-expert counts, the router's mean
+      probabilities and the z-loss terms are summed over the ranks in one
+      reduction.
+    * E >= 16 (``param_pspecs`` shards the experts over 'model'): where
+      ``moe_ep.ep_applicable`` holds, the expert-parallel exchange of
+      ``models/moe_ep.py`` on each rank's (B/dp, S/tp) block and its local
+      stacks; otherwise (decode) each rank runs its own experts' buckets
+      and its output is ``Partial`` over 'model'.
+    * E < 16: the stacks' f dim lies over 'model'; K2 runs every expert on
+      the rank's f slice, over the tokens of its data shard (gathered over
+      'model' in training), and the output is ``Partial`` over 'model'.
+
+    Drops are the single-device layer's: a token's rank within its expert
+    counts the tokens of the data shards before its own."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.sharding import expert_parallel
+
+    from .layers import apply_mlp
+    from .moe_ep import apply_moe_ep, ep_applicable
+    m = cfg.moe
+    E, K = m.n_routed, m.top_k
+    B, S, d = x.shape
+    T = B * S
+    xp = x.placements
+    bspec = lay.spec_from(xp, 3)[:2]
+    ep = expert_parallel(cfg)
+    if ep and ep_applicable(cfg, B, S):
+        blk = lay.place((bspec[0], "model", None))
+        xb = x.redistribute(x.device_mesh, blk)
+        local = {k: (v.to_local() if lay.is_dtensor(v)
+                     else {kk: vv.to_local() for kk, vv in v.items()})
+                 for k, v in params.items()}
+        yb, info = apply_moe_ep(local, xb.to_local(), cfg, capacity=capacity,
+                                local=True)
+        from torch.distributed.tensor import DTensor
+        mesh = x.device_mesh
+        y = DTensor.from_local(yb, mesh, blk, run_check=False)
+        repl = lay.place(())
+        b = bspec[0] if isinstance(bspec[0], tuple) else (bspec[0],)
+        tok = lay.place((tuple(a for a in b if a) + ("model",), None))
+        for k in ("topk_idx", "gates", "probs", "gate_in"):
+            info[k] = DTensor.from_local(info[k], mesh, tok, run_check=False)
+        for k in ("workload", "aux_loss", "z_loss", "dropped", "ep_cx"):
+            info[k] = DTensor.from_local(info[k], mesh, repl,
+                                         run_check=False)
+        return y, info
+
+    # -- routing on each rank's tokens (K1) ---------------------------------
+    def rt(x, router):
+        Bl, Sl = x.shape[:2]
+        gates, idx, probs, logits = route({"router": router},
+                                          x.reshape(-1, d), m)
+        cnt = _bincount(idx.reshape(-1), E)
+        stats = torch.cat([cnt.float(), probs.sum(0),
+                           (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]])
+        tok = lambda t: t.reshape(Bl, Sl, -1)
+        return (tok(gates), tok(idx), tok(probs), stats,
+                cnt.reshape(1, 1, E))
+
+    r3 = lay.place(tuple(bspec) + (None,))
+    sums = lay.sums_of(xp)
+    gates, idx, probs, stats, cnt_blk = lay.local_kernel(
+        rt, [xp, lay.place((None, None))],
+        (r3, r3, r3, sums, r3))(x, params["router"])
+    stats = stats.redistribute(x.device_mesh, lay.place((None,)))
+    counts = stats[:E]
+    aux = E * ((counts / (T * K)) * (stats[E:2 * E] / T)).sum()
+    z = stats[2 * E] / T
+
+    # -- the experts on the rank's f slice or its own experts ---------------
+    C = capacity if capacity is not None else expert_capacity(m, T)
+    sparse = use_sparse_path(m, T, capacity)
+    rows = lay.place((bspec[0], None, None))       # the data shard, whole
+    need_off = not sparse and C < T
+    e_loc = params["gate"].to_local().shape[0]
+    e0 = lay.offset(params["gate"], 0) if e_loc != E else 0
+    shard_i = lay.offset(x, 0) // max(x.to_local().shape[0], 1)
+    has_shared = bool(m.n_shared)
+    ws = [params["gate"], params["up"], params["down"]]
+    if has_shared:
+        ws += [params["shared"][k] for k in sorted(params["shared"])]
+
+    def experts(x, gates, idx, *rest):
+        if need_off:
+            cnt_all, rest = rest[0], rest[1:]
+        wg, wu, wd = rest[:3]
+        Bl = x.shape[0]
+        xf = x.reshape(-1, d)
+        idx = idx.reshape(-1, K)
+        gates = gates.reshape(-1, K)
+        mine = dict(gate=wg, up=wu, down=wd)
+        if sparse:
+            y = grouped_expert_ffn(mine, xf, idx, gates, cfg, e0=e0)
+            drop = torch.zeros((), dtype=torch.int32, device=x.device)
+        else:
+            # no expert holds more than the shard's tokens: its buckets are
+            # at most that deep (the drops still go by the global rank)
+            C_l = min(C, xf.shape[0])
+            xe, cnt, se, rank, inv = local_dispatch(xf, idx, E, K, C_l)
+            g_rank = rank
+            if need_off:
+                # tokens of the data shards before this one come first
+                per_shard = cnt_all.sum(1).to(torch.long)     # (n_dp, E)
+                off = per_shard[:shard_i].sum(0)
+                off = torch.cat([off, off.new_zeros(1)])
+                g_rank = rank + off[se]
+            ye = expert_ffn_dense(mine, xe[e0:e0 + e_loc], cfg,
+                                  counts=cnt[e0:e0 + e_loc])
+            own = (se >= e0) & (se < e0 + e_loc)
+            keep = (g_rank < C) & (se < E) & own
+            y = _combine_topk(_bucket_rows(ye, se, rank, inv, keep, e0),
+                              gates)
+            # the data shard's drops, the same on every 'model' rank
+            drop = ((se < E) & (g_rank >= C)).sum().to(torch.int32)
+        y = y.to(x.dtype)
+        if has_shared:
+            sh = dict(zip(sorted(params["shared"]), rest[3:]))
+            y = y + apply_mlp(sh, xf, cfg)
+        return y.reshape(Bl, -1, d), drop
+
+    ins = [x, gates, idx]
+    in_pls = [rows, rows, rows]
+    if need_off:
+        ins.append(cnt_blk)
+        in_pls.append(lay.place((None, None, None)))
+    ins += ws
+    in_pls += [lay.gathered_weight(w) for w in ws]
+    y, drop = lay.local_kernel(
+        experts, in_pls,
+        (lay.place((bspec[0], None, None), partial=("model",)),
+         lay.sums_of(rows)))(*ins)
+    dropped = drop.redistribute(x.device_mesh, lay.place(()))
+    tk_idx, tk_gates, tk_probs, tk_x = _flat_tokens(idx, gates, probs, x)
+    info = {
+        "workload": counts.to(torch.int32),
+        "topk_idx": tk_idx,
+        "gates": tk_gates,
+        "probs": tk_probs,
+        "gate_in": tk_x,
+        "aux_loss": aux * m.aux_loss_weight,
+        "z_loss": z * m.router_z_weight,
+        "dropped": dropped,
+    }
+    return y, info

@@ -306,10 +306,13 @@ class _CountExchange:
             dist.all_to_all_single(self.rx, src, group=group, async_op=True),
             dist.all_reduce(self.mx, op=dist.ReduceOp.MAX, async_op=True))
 
-    def wait(self):
+    def wait(self, top: int):
+        """The received counts and the global max (``top``, the ladder's
+        top rung, on ``meta``: the shape dry run reads no value)."""
         for w in self.works:
             w.wait()
-        return self.rx.to(self.device), int(self.mx.item())
+        gmax = top if self.mx.is_meta else int(self.mx.item())
+        return self.rx.to(self.device), gmax
 
 
 # --------------------------------------------------------------------------
@@ -387,9 +390,14 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
                  force_exchange: Optional[str] = None,
                  count_overlap: Optional[bool] = None,
                  placement=None,
-                 demand_view: bool = False):
+                 demand_view: bool = False,
+                 local: bool = False):
     """Expert-parallel MoE on this rank.  x (B, S, d), the full input on
     every rank -> (y (B, S, d), info), both whole on every rank.
+
+    ``local`` (the laid-out model, ``models/moe.py::_moe_laid``): ``x`` is
+    this rank's own (B/dp, S/tp, d) block, and ``y`` and the per-token
+    observables come back as this rank's block, not gathered.
 
     ``capacity`` (stated for the full batch, like ``apply_moe``'s) scales
     to each rank's token share; None derives the per-rank capacity from
@@ -429,11 +437,15 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
     st = shd.active()
     mesh = st["mesh"]
     m = cfg.moe
-    B, S, d = x.shape
     E, K = m.n_routed, m.top_k
     tp = axis_size(mesh, "model")
     dp = axis_size(mesh, *data_axes(mesh))
-    Bl, Sl = B // dp, S // tp
+    if local:
+        Bl, Sl, d = x.shape
+        B, S = Bl * dp, Sl * tp
+    else:
+        B, S, d = x.shape
+        Bl, Sl = B // dp, S // tp
     T_my = Bl * Sl
     if capacity is None:
         C = expert_capacity(m, T_my)
@@ -454,7 +466,7 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
                                device=x.device)
         inv_p = torch.argsort(perm)
 
-    xb = x[di * Bl:(di + 1) * Bl, mi * Sl:(mi + 1) * Sl]
+    xb = x if local else x[di * Bl:(di + 1) * Bl, mi * Sl:(mi + 1) * Sl]
     xf = xb.reshape(-1, d)
     gates, idx, probs, logits = route({"router": params["router"]}, xf, m)
 
@@ -474,7 +486,7 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
     else:
         if pending is None:
             pending = _CountExchange(counts.clamp(max=C), perm, tp, g_model)
-        cnt_rx, gmax = pending.wait()
+        cnt_rx, gmax = pending.wait(C)
         # the smallest rung covering the global max: every rank reads the
         # same max, so every rank ships the same shape
         cx = caps[min(bisect_left(caps, gmax), len(caps) - 1)]
@@ -512,10 +524,12 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
     aux_z = _MeanOverWorld.apply(torch.stack([aux, z]), n)
 
     def gather(t):
+        if local:
+            return t.reshape((Bl * Sl,) + tuple(t.shape[1:]))
         return _GatherTokens.apply(t.reshape((Bl, Sl) + tuple(t.shape[1:])),
                                    dp, tp, di, mi)
 
-    T_all = B * S
+    T_all = Bl * Sl if local else B * S
     info = {
         "workload": ints[:E],
         "topk_idx": gather(idx).reshape(T_all, K),
@@ -532,4 +546,6 @@ def apply_moe_ep(params, x, cfg: ModelConfig, *,
         if dp > 1:
             dv = _all_reduce(dv, mesh.get_group("data"))
         info["ep_counts"] = dv
+    if local:
+        return y.reshape(Bl, Sl, d), info
     return gather(y), info

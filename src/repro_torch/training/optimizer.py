@@ -80,9 +80,21 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
     lr = schedule(step, oc).to(step.device)
     b1, b2 = oc.betas
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
-                           for g in tree_leaves(grads) for c in _chunks(g))
-                       + 1e-20)
+    from repro_torch.launch.layout import global_sq_norm, is_dtensor
+    laid = any(is_dtensor(g) for g in tree_leaves(grads))
+    if laid:
+        # laid-out leaves (launch/layout.py): the norm over every rank's
+        # shards, then each rank updates its own
+        gnorm = torch.sqrt(global_sq_norm(grads) + 1e-20)
+        local = lambda t: t.to_local() if is_dtensor(t) else t
+        params_l, grads_l, mu_l, nu_l = (tree_map(local, t) for t in (
+            params, grads, opt_state["mu"], opt_state["nu"]))
+    else:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
+                               for g in tree_leaves(grads)
+                               for c in _chunks(g)) + 1e-20)
+        params_l, grads_l, mu_l, nu_l = (params, grads, opt_state["mu"],
+                                         opt_state["nu"])
     scale = torch.clamp(oc.clip_norm / gnorm, max=1.0)
 
     stepf = step.to(torch.float32)
@@ -106,6 +118,6 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
 
     # leaves are matched by their keys (trees carried from the JAX package
     # order dict keys differently)
-    tree_map(upd, params, grads, opt_state["mu"], opt_state["nu"])
+    tree_map(upd, params_l, grads_l, mu_l, nu_l)
     return params, {"mu": opt_state["mu"], "nu": opt_state["nu"],
                     "step": step}, {"lr": lr, "grad_norm": gnorm}

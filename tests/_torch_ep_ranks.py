@@ -74,7 +74,7 @@ def ragged_rank(rank, world, cfg_kw, params, xs, cfg_t_kw, params_t, x_t):
     runs = (("ragged", {}), ("dense", {"force_exchange": "dense"}),
             ("sequential", {"count_overlap": False}))
     out = {"kinds": {}, "pressure": {}}
-    with shd.rules(mesh, "tp"):
+    with shd.rules(mesh, wmode="tp"):
         for kind, x in xs.items():
             out["kinds"][kind] = {name: run_layer(params, x, cfg, mesh, **kw)
                                   for name, kw in runs}
@@ -89,7 +89,7 @@ def fsdp_rank(rank, world, cases, x):
     mesh = make_mesh(2, 2)
     out = []
     for cfg_kw, params, wmode in cases:
-        with shd.rules(mesh, wmode):
+        with shd.rules(mesh, wmode=wmode):
             out.append(run_layer(params, x, make_cfg(**cfg_kw), mesh))
     return out
 
@@ -105,7 +105,7 @@ def placement_rank(rank, world, perm, x):
     x = torch.tensor(x)
     ident = np.arange(cfg.moe.n_routed, dtype=np.int32)
     out = {}
-    with shd.rules(mesh, "tp"), torch.no_grad():
+    with shd.rules(mesh, wmode="tp"), torch.no_grad():
         out["plain"] = apply_moe(params, x, cfg)[0].numpy()
         for name, pm, p in (("ident_a", ident, params),
                             ("ident_b", ident, params),

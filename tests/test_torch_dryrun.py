@@ -206,3 +206,53 @@ def test_meta_backward_is_the_plain_recompute(case):
         assert tuple(c.shape) == tuple(m.shape) and c.dtype == m.dtype
     assert fc_meta.get_total_flops() == \
         kernel_flops + fc_cpu.get_total_flops()
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_laid_out_peak_on_one_rank_is_the_card_peak(shape):
+    """Laid out on a (1, 1) mesh of a fake group every shard is the whole
+    tensor, so ``PeakBytes`` must read the one-card run's peak: it counts
+    the local storages and skips what DTensor's sharding propagation
+    allocates in its fake mode (global-size tensors that hold no memory).
+    The laid-out layers' own temporaries (their collectives' outputs, the
+    log-sum-exp decode's partials) differ by under 0.5 %."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import make_smoke
+    from repro_torch.launch import sharding as shd
+    cfg = make_smoke(get_config("mixtral_8x7b")).replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    spec = dataclasses.replace(shapes.SHAPES[shape], batch=2, seq=256)
+    build = {"train": shapes.build_train, "prefill": shapes.build_prefill,
+             "decode": shapes.build_decode}[spec.kind]
+    train = spec.kind == "train"
+    card = dryrun.measure(*build(cfg, spec)[1:], train=train)
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for wmode in ("tp", "fsdp"):
+            c, fn, args = build(cfg, spec, mesh, wmode)
+            with shd.rules(mesh, shd.logical_map_for(c, shape, mesh),
+                           wmode):
+                laid = dryrun.measure(fn, args, train=train, mesh=mesh)
+            assert laid["param_bytes"] == card["param_bytes"]
+            assert laid["peak_live_bytes"] == pytest.approx(
+                card["peak_live_bytes"], rel=5e-3)
+
+
+def test_peak_skips_the_sharding_propagation_of_a_wide_mesh():
+    """A DTensor op over 64 ranks: DTensor learns its output's shape by
+    running it on global-size fake tensors (64 x the shard); ``PeakBytes``
+    reads the shard and the op's local output only."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    with dryrun.fake_world(64):
+        mesh = init_device_mesh("cpu", (64,), mesh_dim_names=("model",))
+        local = torch.empty((1021, 1024), device="meta")
+        x = DTensor.from_local(local, mesh, [Shard(0)], run_check=False)
+        mem = dryrun.PeakBytes()
+        mem.start([local])
+        with mem:
+            y = x * 3.0
+        assert y.to_local().shape == local.shape
+        assert mem.peak == 2 * local.nbytes

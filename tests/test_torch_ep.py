@@ -378,7 +378,7 @@ def test_ep_argument_errors_match_reference():
     assert str(got.value) == ("force_exchange must be None|'dense'|"
                               "'ragged', got 'bogus'")
     with pytest.raises(ValueError, match="wmode"):
-        with tshd.rules(None, "zero"):
+        with tshd.rules(None, wmode="zero"):
             pass
 
 

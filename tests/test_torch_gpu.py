@@ -1032,3 +1032,44 @@ def test_expert_ffn_at_the_ep_group_layout_matches_plain(cuda, ragged):
     rows = (torch.arange(C, device=cuda)[None, :]
             >= gcnt[:, None]).reshape(E_loc, tp, C)
     assert not y[rows].float().abs().sum()
+
+
+def _layout_rank(rank, world):
+    """A rank of ``test_layout_on_gloo_ranks_runs_the_kernels``: smoke
+    Mixtral in bfloat16 laid out on a (2, 2) mesh whose every rank is on
+    this card, against the single-process port on the same card."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import apply_model, init_model
+    cfg = make_smoke(get_config("mixtral_8x7b")).replace(
+        dtype="bfloat16", param_dtype="bfloat16")
+    params = init_model(cfg, seed=0, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 64)), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        ref = apply_model(params, toks, cfg)[0][..., :cfg.vocab].float()
+    mesh = make_mesh(2, 2, device_type="cuda")
+    kernels.reset_launch_counts()
+    with shd.rules(mesh, shd.logical_map_for(cfg, "prefill_32k", mesh)), \
+            torch.no_grad():
+        logits = apply_model(lay.distribute_params(params, cfg, mesh),
+                             lay.distribute_batch(toks, mesh), cfg)[0]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        got = logits.full_tensor().float()
+    return _row_rel_err(got, ref), launches
+
+
+def test_layout_on_gloo_ranks_runs_the_kernels(cuda):
+    """The laid-out forward on four gloo ranks sharing the card (their
+    collectives staged through host memory by ``HostWire``): K1 on each
+    rank's tokens, K2 ragged on its f slice, K3 on its heads; logits
+    within 3e-2 of the single-process port."""
+    from repro_torch.launch.mesh import run_ranks
+    for err, launches in run_ranks(_layout_rank, 4, backend="gloo",
+                                   device="cuda", timeout_s=300):
+        assert err < BF16_TOL
+        for k in ("gating", "expert_ffn_ragged", "flash_attention"):
+            assert launches[k] > 0, k
