@@ -3008,22 +3008,16 @@ def cross_source(torch, cfg, batch, seed, T=None, device="cpu"):
 
 
 @contextlib.contextmanager
-def noncausal_k3():
-    """Counts K3's non-causal launches (cross-attention and the encoder)
-    while the block runs: ``models.attention.flash_attention`` wrapped."""
-    import repro_torch.models.attention as attention
-    real, seen = attention.flash_attention, {"noncausal": 0}
-
-    def wrapped(q, k, v, **kw):
-        if q.is_cuda and not kw.get("causal", True):
-            seen["noncausal"] += 1
-        return real(q, k, v, **kw)
-
-    attention.flash_attention = wrapped
+def k3_forms():
+    """K3's launches by form while the block runs, as its wrapper counts
+    them at launch (``kernels.K3_FORMS``): non-causal (cross-attention and
+    the encoder) and windowed with a softcap (Gemma-2's local layers)."""
+    from repro_torch import kernels
+    before, seen = dict(kernels.K3_FORMS), {}
     try:
         yield seen
     finally:
-        attention.flash_attention = real
+        seen.update({k: kernels.K3_FORMS[k] - v for k, v in before.items()})
 
 
 def archs_phase(torch, kernels, name):
@@ -3454,7 +3448,7 @@ def cross_check(torch, cfg, params, corpus, name):
     toks = torch.as_tensor(corpus.sample(rng, VISION_S)[None], device=dev)
     S = VISION_S
     t0 = time.perf_counter()
-    with noncausal_k3() as seen:
+    with k3_forms() as seen:
         lg, _, _ = apply_model(params, toks, cfg, cross_src=src,
                                last_logit_only=True)
         n_cross = src.shape[1] if cfg.family == "vlm" else SEAMLESS_FRAMES
@@ -3950,6 +3944,15 @@ LAYOUT_BATCH, LAYOUT_SEQ, LAYOUT_DECODE, LAYOUT_TRAIN_SEQ = 4, 512, 8, 128
 # cut that keeps the script inside its time limit)
 LAYOUT_DECODE_FSDP = 1
 LAYOUT_TIMEOUT_S = 600
+# (d): the archs whose laid-out layers came last, at published widths under
+# tp: tag, arch, decoder layers, encoder layers (a depth cut for the time
+# limit), batch, prompt, cross source positions
+LAYOUT_ARCHS = (
+    ("vision", "llama-3.2-vision-11b", 5, None, 2, 256, 1601),
+    ("seamless", "seamless-m4t-large-v2", 4, 4, 2, 256, 1024),
+    ("gemma2", "gemma2-9b", 2, None, 2, 5000, None),
+)
+LAYOUT_ARCH_DECODE = 4
 
 
 def layout_cfg():
@@ -4186,10 +4189,11 @@ def layout_ref_grads(torch, cfg, params, toks, labels, routing):
 
 
 def layout_rank(rank, world, tokens, labels, ref_path):
-    """One rank of phase 17 (a): weights drawn on the card from seed 0 (the
-    same on every rank); rank 0 first runs the single-process port on them
-    and writes its results to ``ref_path``, which every rank maps; every
-    rank then runs ``layout_steps`` under ``tp`` and ``fsdp``."""
+    """One rank of phase 17 (a) and (d): weights drawn on the card from
+    seed 0 (the same on every rank); rank 0 first runs the single-process
+    port on them and writes its results to ``ref_path``, which every rank
+    maps; every rank then runs ``layout_steps`` under ``tp`` and
+    ``fsdp``, then (d) (``layout_archs``)."""
     import gc
 
     import torch
@@ -4264,7 +4268,191 @@ def layout_rank(rank, world, tokens, labels, ref_path):
     out["launches"] = kernels.launch_counts()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["seconds"] = time.perf_counter() - t_start
+    del params, ref, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["archs"] = layout_archs(torch, kernels, rank, mesh, ref_path)
+    out["archs_s"] = time.perf_counter() - t0
     return out
+
+
+def layout_arch_cfg(arch, n_layers, n_enc):
+    """``arch`` at published widths cut to ``n_layers`` decoder layers (and
+    ``n_enc`` encoder layers), bfloat16 (its config's own dtypes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    if n_enc is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                      n_layers=n_enc))
+    return cfg
+
+
+def layout_arch_serve(torch, cfg, params, toks, src, mesh=None):
+    """The prefill (its last logits) and ``LAYOUT_ARCH_DECODE`` greedy
+    decode steps of (d), with the cross source where there is one: on one
+    process (``mesh`` None) or laid out under tp on ``mesh`` (the prefill
+    under prefill_32k's map, the decode under decode_32k's; the cache's
+    sequence over 'model').  -> (each step's logits rows (steps, B, V) and
+    greedy tokens (B, 1 + steps) on the host, the caches)."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import apply_model, init_caches
+    from repro_torch.serving.steps import init_serve_state, make_decode_step
+    B, S = toks.shape
+    V = cfg.vocab
+    n = LAYOUT_ARCH_DECODE
+    caches = init_caches(cfg, B, S + n, device="cuda",
+                         n_cross=None if src is None else src.shape[1])
+    rules = (lambda shape: shd.rules(mesh, shd.logical_map_for(
+        cfg, shape, mesh), "tp")) if mesh is not None \
+        else (lambda shape: contextlib.nullcontext())
+    host = (lambda t: t.full_tensor().float().cpu()) if mesh is not None \
+        else (lambda t: t.float().cpu())
+    rows, toks_out = [], []
+    with rules("prefill_32k"), torch.no_grad():
+        p, t, x = params, toks, src
+        if mesh is not None:
+            p = lay.distribute_params(params, cfg, mesh, "tp")
+            t = lay.distribute_batch(toks, mesh)
+            x = None if src is None else lay.distribute_batch(src, mesh)
+            caches = lay.distribute_caches(caches, cfg, "prefill_32k", mesh)
+        lg, caches, _ = apply_model(
+            p, t, cfg, positions=torch.arange(S, dtype=torch.int32,
+                                              device="cuda"),
+            caches=caches, cross_src=x, last_logit_only=True)
+        nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+        rows.append(host(lg)[:, -1, :V])
+        toks_out.append(host(nxt))
+    decode = make_decode_step(cfg, None)
+    with rules("decode_32k"), torch.no_grad():
+        state = init_serve_state(cfg, B, S + n, dali_cfg=None, device="cuda")
+        state.update(caches=caches, tokens=nxt, pos=torch.full(
+            (), S, dtype=torch.int32, device="cuda"))
+        for _ in range(n):
+            state, lg, _ = decode(p, state)
+            rows.append(host(lg)[:, -1, :V])
+            toks_out.append(host(state["tokens"]))
+        torch.cuda.synchronize()
+    return torch.stack(rows), torch.cat(toks_out, 1).long(), caches
+
+
+def rolling_slots_ok(torch, cache, S):
+    """Whether this rank's shard of a rolling cache's ``pos`` (1, B, S_c),
+    its sequence over 'model', holds at each slot j the latest of the
+    positions 0..S-1 (the prompt's and the decoded tokens') congruent to j
+    modulo S_c."""
+    from repro_torch.launch import layout as lay
+    pos = cache["pos"]
+    S_c = pos.shape[-1]
+    s0 = lay.offset(pos, 2)
+    loc = pos.to_local()
+    j = torch.arange(s0, s0 + loc.shape[-1], device=loc.device)
+    want = j + S_c * torch.div(S - 1 - j, S_c, rounding_mode="floor")
+    return bool((loc == want.to(loc.dtype)).all())
+
+
+def layout_archs(torch, kernels, rank, mesh, ref_path):
+    """(d) on one rank: each of ``LAYOUT_ARCHS`` drawn on the card from
+    seed 0 (its cross gates opened to 0.5), rank 0 serving it on one
+    process first (uncounted), then every rank laid out under tp, K3's
+    forms counted (``k3_forms``).  -> per arch the laid-out rows and
+    tokens (rank 0), the single process's, the K3 forms, whether every
+    local rolling-cache position sits at its slot (Gemma-2), and the
+    seconds; and the launches of the laid-out runs."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import init_model
+    out = {}
+    kernels.reset_launch_counts()
+    for tag, arch, n_layers, n_enc, B, S, T in LAYOUT_ARCHS:
+        t0 = time.perf_counter()
+        cfg = layout_arch_cfg(arch, n_layers, n_enc)
+        params = open_gates(torch, init_model(cfg, seed=0, device="cuda"))
+        g = torch.Generator(device="cuda")
+        g.manual_seed(LAYOUT_SEED)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                             device="cuda", dtype=torch.int32)
+        src = None if T is None else (torch.randn(
+            (B, T, cfg.d_model), generator=g, device="cuda") * 0.1).to(
+                torch.bfloat16)
+        path = f"{ref_path}.{tag}"
+        if rank == 0:
+            counts = kernels.launch_counts()   # the single process's: uncounted
+            with shd.rules(None):
+                rows, tk, _ = layout_arch_serve(torch, cfg, params, toks, src)
+            kernels.LAUNCHES.update(counts)
+            torch.save({"rows": rows, "tokens": tk}, path)
+            del rows, tk
+        dist.barrier()
+        t1 = time.perf_counter()
+        with k3_forms() as forms:
+            rows, tk, caches = layout_arch_serve(torch, cfg, params, toks,
+                                                 src, mesh)
+        res = {"forms": dict(forms), "laid_s": time.perf_counter() - t1}
+        if cfg.attn.sliding_window and S > cfg.attn.sliding_window:
+            res["slots_ok"] = rolling_slots_ok(torch, caches["scan"][0],
+                                               S + LAYOUT_ARCH_DECODE)
+        if rank == 0:
+            ref = torch.load(path, weights_only=True)
+            res.update(rows=rows, tokens=tk, ref_rows=ref["rows"],
+                       ref_tokens=ref["tokens"])
+        res["seconds"] = time.perf_counter() - t0
+        out[tag] = res
+        del params, caches, toks, src
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = kernels.launch_counts()
+    return out
+
+
+def layout_arch_verdict(torch, tag, ranks):
+    """(d)'s gates for one arch: K3 launched in every rank in the arch's
+    forms (non-causal for the cross layers and the encoder, windowed with
+    a softcap for Gemma-2's local layer), Gemma-2's rolling-cache slots
+    right in every rank, and ``layout_verdict``'s rule on rank 0's rows:
+    each logits row within 3e-2 of the single process's, relative to its
+    max, up to and including the step of a row's first token that
+    differs; tokens equal, or the first that differs a tie within 3e-2 of
+    the row's max.  -> (ok, lines)."""
+    r0 = ranks[0]["archs"][tag]
+    need = "window_softcap" if tag == "gemma2" else "noncausal"
+    forms_ok = all(r["archs"][tag]["forms"][need] > 0 for r in ranks)
+    slots_ok = all(r["archs"][tag].get("slots_ok", True) for r in ranks)
+    rows, ref = r0["rows"], r0["ref_rows"]             # (steps, B, V)
+    lay_t, ref_t = r0["tokens"], r0["ref_tokens"]      # (B, steps)
+    errs, tok_ok, notes = [], True, []
+    for i in range(lay_t.shape[0]):
+        diff = (lay_t[i] != ref_t[i]).nonzero()
+        last = int(diff[0]) if len(diff) else lay_t.shape[1] - 1
+        for k in range(last + 1):
+            errs.append(float((rows[k, i] - ref[k, i]).abs().max()
+                              / (ref[k, i].abs().max() + 1e-6)))
+        if len(diff):
+            lg = ref[last, i]
+            gap = float(lg[ref_t[i, last]] - lg[lay_t[i, last]])
+            tie = gap <= BF16_TOL * float(lg.abs().max())
+            tok_ok = tok_ok and tie
+            notes.append(f"row {i} first differs at step {last} "
+                         f"({'a tie' if tie else 'NOT a tie'}, gap "
+                         f"{gap:.4f})")
+    row_ok = max(errs) < BF16_TOL
+    ok = forms_ok and slots_ok and row_ok and tok_ok
+    forms = [r["archs"][tag]["forms"][need] for r in ranks]
+    lines = [f"rows rel_err max {max(errs):.3e} over {len(errs)} rows; "
+             f"tokens {'equal' if not notes else '; '.join(notes)}; K3 "
+             f"{need.replace('_', ' + ')} launches per rank {forms}"
+             + ("" if tag != "gemma2" else
+                f"; rolling-cache slots pos % window in every rank: "
+                f"{slots_ok}")
+             + f"; laid out {r0['laid_s']:.1f} s, with the single process "
+             f"{r0['seconds']:.1f} s | {'pass' if ok else 'FAIL'}"]
+    return ok, lines
 
 
 def layout_verdict(torch, r0, ranks, wmode):
@@ -4372,7 +4560,10 @@ def layout_phase(torch, kernels, card):
     card, against the single-process port; (b) the fake group's ``meta``
     run of the same steps counts the same collectives; (c) the production
     mesh's dry run of Mixtral-8x7B decode_32k (subprocesses started first,
-    read last).  Returns (ok, the ranks' launches summed)."""
+    read last); (d) on the same ranks after (a), Llama-3.2-Vision's cross
+    layer, SeamlessM4T's encoder and decoder and Gemma-2's rolling cache
+    past its window at published widths under tp, against the single
+    process.  Returns (ok, the ranks' launches summed in (a), in (d))."""
     import os
 
     import numpy as np
@@ -4408,8 +4599,10 @@ def layout_phase(torch, kernels, card):
           f"under tp the forward's logits too), {LAYOUT_DECODE} greedy "
           f"decode steps under tp and {LAYOUT_DECODE_FSDP} under fsdp "
           f"(decode_32k, the cache's sequence over 'model'), under both the "
-          f"gradients of a training step at S={LAYOUT_TRAIN_SEQ} (train_4k)",
-          flush=True)
+          f"gradients of a training step at S={LAYOUT_TRAIN_SEQ} (train_4k); "
+          f"then (d) on the same ranks under tp: prefill and "
+          f"{LAYOUT_ARCH_DECODE} greedy decode steps of "
+          + ", ".join(a for _, a, *_ in LAYOUT_ARCHS), flush=True)
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix="layout-ref-")
@@ -4431,6 +4624,7 @@ def layout_phase(torch, kernels, card):
         lc = r["launches"]
         good = all(lc[k] > 0 for k in ("gating", "expert_ffn_ragged",
                                        "flash_attention"))
+        good = good and r["archs"]["launches"]["flash_attention"] > 0
         ok = ok and good
         print(f"layout (a) rank {r['rank']}: K1 {lc['gating']} K2 ragged "
               f"{lc['expert_ffn_ragged']} K3 {lc['flash_attention']} "
@@ -4490,11 +4684,27 @@ def layout_phase(torch, kernels, card):
               f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
               f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}",
               flush=True)
+    # (d) the archs whose laid-out layers came last, on the same ranks
+    arch_counts = {k: sum(r["archs"]["launches"][k] for r in ranks)
+                   for k in r0["archs"]["launches"]}
+    for tag, arch, n_layers, n_enc, B, S, T in LAYOUT_ARCHS:
+        good, lines = layout_arch_verdict(torch, tag, ranks)
+        ok = ok and good
+        what = (f"{n_layers} layers" + (f" and {n_enc} encoder layers (a "
+                                        "depth cut for the time limit)"
+                                        if n_enc else "")
+                + f", B={B} S={S}" + (f", a {T}-position bf16 cross source, "
+                                      "gates 0.5" if T else ""))
+        for line in lines:
+            print(f"layout (d) {arch} ({what}): {line}", flush=True)
+    print(f"layout (d): launches summed over the ranks "
+          f"{json.dumps(arch_counts)}; {max(r['archs_s'] for r in ranks):.1f}"
+          " s", flush=True)
     print(f"layout: launches summed over the ranks {json.dumps(counts)} "
-          f"((a) {t_a:.1f} s with the spawn)", flush=True)
+          f"((a) and (d) {t_a:.1f} s with the spawn)", flush=True)
     print(f"layout: phase {time.perf_counter() - t0:.1f} s on {card} | "
           f"{'pass' if ok else 'FAIL'}", flush=True)
-    return ok, counts
+    return ok, counts, arch_counts
 
 
 def main():
@@ -4612,7 +4822,8 @@ def main():
 
     # -- phase 17: the GSPMD layout on DTensor ------------------------------
     free(torch)
-    layout_ok, layout_counts = layout_phase(torch, kernels, card)
+    layout_ok, layout_counts, layout_arch_counts = layout_phase(
+        torch, kernels, card)
 
     out = []
     for r in rows:
@@ -4648,6 +4859,7 @@ def main():
                     "launches_ep": ep_counts[r["name"]],
                     "launches_ep_trials": ep_trial_counts[r["name"]],
                     "launches_layout": layout_counts[r["name"]],
+                    "launches_layout_archs": layout_arch_counts[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -40,10 +40,16 @@ LAUNCHES = {
     "flash_attention_bwd": 0,
 }
 
+# K3's launches by form, counted beside LAUNCHES["flash_attention"]:
+# non-causal (cross-attention, the encoder) and windowed with a softcap
+# (Gemma-2's local layers)
+K3_FORMS = {"noncausal": 0, "window_softcap": 0}
+
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, K3_FORMS):
+        for k in d:
+            d[k] = 0
 
 
 def launch_counts() -> dict:

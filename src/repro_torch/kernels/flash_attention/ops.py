@@ -248,6 +248,8 @@ def _launch(q, k, v, causal: bool, window: int, softcap: float,
         Hkv, D, int(causal), window, softcap, scale, stream),
         "flash_attention")
     kernels.LAUNCHES["flash_attention"] += 1
+    kernels.K3_FORMS["noncausal"] += not causal
+    kernels.K3_FORMS["window_softcap"] += bool(window and softcap)
     return o
 
 

@@ -16,7 +16,8 @@ run; a DTensor never reaches a kernel's binding) and wraps its outputs
 with the declared placements (``Partial`` where each rank holds a share of
 a sum).  The gradient of an input replicated along a mesh dim along which
 the outputs differ is a sum of the ranks' shares: it is declared
-``Partial`` there.
+``Partial`` there.  The gradient of a ``Partial`` input is each rank's
+whole: it is declared ``Replicate``.
 """
 from __future__ import annotations
 
@@ -127,19 +128,31 @@ def gather(tree):
 
 def _grad_placements(in_pls, out_pls):
     """A Replicate input dim whose outputs differ along that mesh dim gets
-    a Partial gradient (each rank holds a share of it)."""
+    a Partial gradient (each rank holds a share of it); a Partial input
+    dim a Replicate one (the gradient of each rank's summand is the whole
+    gradient of the sum)."""
     from torch.distributed.tensor import Partial, Replicate
     flat_out = [p for p in out_pls if p is not None]
     differs = [any(not isinstance(o[m], Replicate) for o in flat_out)
                for m in range(len(flat_out[0]))] if flat_out else []
-    grads = []
-    for pl in in_pls:
-        if pl is None:
-            grads.append(None)
-            continue
-        grads.append(tuple(Partial() if isinstance(p, Replicate)
-                           and differs[m] else p for m, p in enumerate(pl)))
-    return tuple(grads)
+
+    def grad(m, p):
+        if isinstance(p, Partial):
+            return Replicate()
+        return Partial() if isinstance(p, Replicate) and differs[m] else p
+
+    return tuple(None if pl is None else
+                 tuple(grad(m, p) for m, p in enumerate(pl))
+                 for pl in in_pls)
+
+
+def local_of(t, out_placements):
+    """``t.to_local()`` for a region whose outputs lie with
+    ``out_placements``: the gradient comes back as ``local_kernel``
+    declares it, ``Partial`` on each mesh dim where ``t`` is replicated and
+    the outputs differ (each rank's share, summed when it is settled)."""
+    pl = _grad_placements([tuple(t.placements)], [tuple(out_placements)])[0]
+    return t.to_local(grad_placements=pl)
 
 
 def local_kernel(fn, in_placements, out_placements):
@@ -157,7 +170,31 @@ def local_kernel(fn, in_placements, out_placements):
                        in_placements=in_pls,
                        in_grad_placements=_grad_placements(in_pls, outs),
                        device_mesh=mesh(), redistribute_inputs=True)
-    return mapped
+    if not any(pl and any(p.is_replicate() for p in pl) for pl in in_pls):
+        return mapped
+
+    def checked(*args):
+        # a replicated input's gradient is either each rank's share (the
+        # outputs differ along that mesh dim) or each rank's whole (they do
+        # not): a region whose differentiable outputs are mixed there has
+        # no one answer
+        res = mapped(*args)
+        if not torch.is_grad_enabled():
+            return res
+        live = [o for o, r in zip(outs, res if isinstance(res, tuple)
+                                  else (res,)) if r.requires_grad]
+        for a, pl in zip(args, in_pls):
+            if pl is None or not getattr(a, "requires_grad", False):
+                continue
+            dims = [m for m, p in enumerate(pl) if p.is_replicate()
+                    and len({o[m].is_replicate() for o in live}) > 1]
+            if dims:
+                raise NotImplementedError(
+                    f"{getattr(fn, '__name__', fn)}: a gradient through a "
+                    "region whose outputs are sharded and replicated along "
+                    f"mesh dims {dims}; split the region")
+        return res
+    return checked
 
 
 class _Stack:
@@ -200,6 +237,23 @@ def unstack(t):
     return _Stack(t) if is_dtensor(t) else t
 
 
+def tp_laid(tree):
+    """A replicated layer's leaves laid out as ``param_pspecs`` lays a
+    decoder layer's under tp: each 2-D projection with its 'model' dim
+    sharded (a local slice, no collective; its gradient is gathered back
+    in the backward), other leaves as they are.  The reference replicates
+    the encoder's stack (its keys hold no 'scan'), and GSPMD slices such
+    weights to the heads and hidden units its hints shard."""
+    def one(path, w):
+        name = str(path[-1])
+        if not is_dtensor(w) or w.dim() != 2 or not shd.is_matrix(name):
+            return w
+        m = w.device_mesh
+        spec = shd.fit_spec(shd.matrix_spec(name), tuple(w.shape), m)
+        return w.redistribute(m, shd.placements(spec, m))
+    return tree_map_with_path(one, tree)
+
+
 def add(x, y):
     """x + y of two DTensors laid out alike, on the local tensors."""
     return local_kernel(lambda a, b: a + b, [x.placements, x.placements],
@@ -220,13 +274,19 @@ def spec_from(pls, ndim: int) -> list:
             for d in dims]
 
 
+def replicated_on(pls, axes) -> tuple:
+    """Placements ``pls`` on the active mesh with the mesh dims named in
+    ``axes`` replicated."""
+    from torch.distributed.tensor import Replicate
+    names = mesh().mesh_dim_names
+    return tuple(Replicate() if names[m] in axes else p
+                 for m, p in enumerate(pls))
+
+
 def gathered_weight(w) -> tuple:
     """A weight's placements with its FSDP shards ('data', 'pod')
     gathered: what a region that computes with the whole weight declares."""
-    from torch.distributed.tensor import Replicate
-    names = w.device_mesh.mesh_dim_names
-    return tuple(Replicate() if names[m] in ("data", "pod") else p
-                 for m, p in enumerate(w.placements))
+    return replicated_on(w.placements, ("data", "pod"))
 
 
 def sums_of(pls) -> tuple:

@@ -124,11 +124,14 @@ def build_prefill(cfg: ModelConfig, spec: ShapeSpec, mesh=None,
                          n_cross=n_cross_for(cfg, spec))
     fn = make_prefill_step(cfg, moe_capacity=_capacity(cfg, B * S))
     params, tokens = meta_model(cfg), _tokens(B, S)
+    src = cross_src_meta(cfg, spec)
     if mesh is not None:
         params = lay.distribute_params(params, cfg, mesh, wmode)
         tokens = lay.distribute_batch(tokens, mesh)
         caches = lay.distribute_caches(caches, cfg, spec.name, mesh)
-    return cfg, fn, (params, tokens, caches, None, cross_src_meta(cfg, spec))
+        if src is not None:
+            src = lay.distribute_batch(src, mesh)
+    return cfg, fn, (params, tokens, caches, None, src)
 
 
 def meta_serve_state(cfg: ModelConfig, batch: int, max_len: int,

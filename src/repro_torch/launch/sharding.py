@@ -219,6 +219,21 @@ def _key_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+def is_matrix(name: str) -> bool:
+    """Whether a 2-D weight named ``name`` is a column- or row-parallel
+    projection (``matrix_spec``)."""
+    return bool(_ROW.search(name) or _COL.search(name))
+
+
+def matrix_spec(name: str, mode: str = "tp") -> tuple:
+    """The spec ``param_pspecs`` gives a 2-D weight named ``name`` (its
+    last key) before fitting: a row-parallel one ('model' on its input
+    dim), else column-parallel ('model' on its output dim); under ``fsdp``
+    'data' on the other dim."""
+    fs = "data" if mode == "fsdp" else None
+    return ("model", fs) if _ROW.search(name) else (fs, "model")
+
+
 def expert_parallel(cfg: ModelConfig) -> bool:
     """Whether ``param_pspecs`` shards the expert stacks' E dim over
     'model' (E >= 16 and a multiple of 16) rather than their f dim."""
@@ -249,10 +264,8 @@ def param_pspecs(cfg: ModelConfig, params, mode: str = "tp", mesh=None):
             spec = (*lead, *sp)
         elif name == "tok":                         # embedding (V, d)
             spec = (*lead, "model", fs)
-        elif _ROW.search(name) and nd - len(lead) == 2:
-            spec = (*lead, "model", fs)
-        elif _COL.search(name) and nd - len(lead) == 2:
-            spec = (*lead, fs, "model")
+        elif nd - len(lead) == 2 and is_matrix(name):
+            spec = (*lead, *matrix_spec(name, mode))
         elif name == "conv_x":                      # (K, d_inner)
             spec = (*lead, None, "model")
         elif name in ("conv_bx", "norm_w") and nd - len(lead) == 1 \

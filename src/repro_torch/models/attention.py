@@ -349,7 +349,11 @@ def _write_laid(cache, positions, **new):
     rank writes the positions its sequence shard holds.  Decode's per-row
     positions (B, 1) write one slot a row; a prefill's shared positions
     are 0..S-1 (every prefill of the port), written as the slice of them
-    the shard holds."""
+    the shard holds.  A prefill longer than the cache (a rolling one)
+    keeps its last S_c positions at slots ``pos % S_c``, as
+    ``_update_cache`` does: slot j holds the latest position congruent to
+    j, so a shard whose slots span the wrap takes positions from both
+    sides of it."""
     from repro_torch.launch import layout as lay
     keys = list(new)
     ref = cache[keys[0]]
@@ -370,11 +374,17 @@ def _write_laid(cache, positions, **new):
                 c[b, li] = torch.where(keep, t.to(c.dtype), c[b, li])
             pos_c[b, li] = torch.where(own, pos_rows.to(pos_c.dtype),
                                        pos_c[b, li])
+        elif ns[0].shape[1] > S_c:
+            # a prompt past a rolling cache: its last S_c positions, each
+            # at slot pos % S_c, which every slot of every shard takes
+            S = ns[0].shape[1]
+            j = torch.arange(s0, s0 + n, device=pos_c.device)
+            p = j + S_c * torch.div(S - 1 - j, S_c, rounding_mode="floor")
+            for c, t in zip(cs, ns):
+                c.copy_(t[:, p].to(c.dtype))
+            pos_c.copy_(p.to(pos_c.dtype)[None].expand_as(pos_c))
         else:
             S = ns[0].shape[1]
-            if S > S_c:
-                raise NotImplementedError("a laid-out prefill longer than "
-                                          "its cache")
             lo, hi = max(s0, 0), min(s0 + n, S)
             if lo < hi:
                 for c, t in zip(cs, ns):
@@ -487,21 +497,30 @@ def _mla_project(params, x, cfg: ModelConfig, positions):
     head, or a rank's) split into their (B, S, h, nope) and rotated (B, S,
     h, rp) parts, the normalised latent ``ckv`` (B, S, R) and the rotated
     shared key ``kpe`` (B, S, 1, rp)."""
-    a, m = cfg.attn, cfg.attn.mla
-    nope, rp, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    rope = rope_table(_pos_rows(positions), cfg.attn.mla.qk_rope_head_dim,
+                      cfg.attn.rope_theta)
+    return (_mla_queries(params, x, cfg, rope)
+            + _mla_latent(params, x, cfg, rope))
+
+
+def _mla_queries(params, x, cfg: ModelConfig, rope):
+    """(q_nope, q_pe) of ``_mla_project``; ``rope`` its (cos, sin)."""
+    m = cfg.attn.mla
+    nope, rp = m.qk_nope_head_dim, m.qk_rope_head_dim
     B, S, _ = x.shape
     if m.q_lora_rank:
-        cq = rms_norm_vec(params["q_norm"], x @ params["wdq"])
-        q = (cq @ params["wq"]).reshape(B, S, -1, nope + rp)
-    else:
-        q = (x @ params["wq"]).reshape(B, S, -1, nope + rp)
-    q_nope, q_pe = q[..., :nope], q[..., nope:]
+        x = rms_norm_vec(params["q_norm"], x @ params["wdq"])
+    q = (x @ params["wq"]).reshape(B, S, -1, nope + rp)
+    return q[..., :nope], apply_rope(q[..., nope:], *rope)
 
+
+def _mla_latent(params, x, cfg: ModelConfig, rope):
+    """(ckv, kpe) of ``_mla_project``; ``rope`` its (cos, sin)."""
+    R = cfg.attn.mla.kv_lora_rank
     dkv = x @ params["wdkv"]
     ckv = rms_norm_vec(params["ckv_norm"], dkv[..., :R])        # (B, S, R)
     kpe = dkv[..., R:][:, :, None, :]                           # (B,S,1,rp)
-    cos, sin = rope_table(_pos_rows(positions), rp, a.rope_theta)
-    return q_nope, apply_rope(q_pe, cos, sin), ckv, apply_rope(kpe, cos, sin)
+    return ckv, apply_rope(kpe, *rope)
 
 
 def _mla_prefill(q_nope, q_pe, ckv, kpe, params, cfg: ModelConfig, scale):
@@ -582,20 +601,32 @@ def _mla_laid(params, x, cfg: ModelConfig, *, positions, cache):
     h = hint(x, "batch", "seq", "embed")
     bs = tuple(lay.spec_from(h.placements, 3)[:2])
     pos = _rows(positions, h)
-    qk = ["wdq", "q_norm"] if m.q_lora_rank else []
-    names = qk + ["wq", "wdkv", "ckv_norm"]
+    rope = lambda: rope_table(_pos_rows(pos), m.qk_rope_head_dim,
+                              cfg.attn.rope_theta)
+    qn = (["wdq", "q_norm"] if m.q_lora_rank else []) + ["wq"]
+    kvn = ["wdkv", "ckv_norm"]
 
-    def proj(h, *ws):
-        q_nope, q_pe, ckv, kpe = _mla_project(dict(zip(names, ws)), h, cfg,
-                                              pos)
-        return q_nope.contiguous(), q_pe, ckv, kpe[:, :, 0]
+    def queries(h, *ws):
+        q_nope, q_pe = _mla_queries(dict(zip(qn, ws)), h, cfg, rope())
+        return q_nope.contiguous(), q_pe
 
+    def latent(h, *ws):
+        ckv, kpe = _mla_latent(dict(zip(kvn, ws)), h, cfg, rope())
+        return ckv, kpe[:, :, 0]
+
+    # two regions: the heads' queries differ across 'model', the latent
+    # is each rank's whole (one region with both would declare the
+    # latent's weights' gradients Partial, each rank's share, where every
+    # rank holds the whole)
     heads = lay.place(bs + ("model", None))
     whole = lay.place(bs + (None,))
-    ws = [params[k] for k in names]
-    q_nope, q_pe, ckv, kpe = lay.local_kernel(
-        proj, [h.placements] + [lay.gathered_weight(w) for w in ws],
-        (heads, heads, whole, whole))(h, *ws)
+    gathered = lambda names: [lay.gathered_weight(params[k]) for k in names]
+    q_nope, q_pe = lay.local_kernel(
+        queries, [h.placements] + gathered(qn), (heads, heads))(
+            h, *[params[k] for k in qn])
+    ckv, kpe = lay.local_kernel(
+        latent, [h.placements] + gathered(kvn), (whole, whole))(
+            h, *[params[k] for k in kvn])
     if cache is not None:
         cache = _write_laid(cache, positions, ckv=ckv, kpe=kpe)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
@@ -700,14 +731,22 @@ def build_cross_kv(params, src, cfg: ModelConfig):
     """Keys and values (B, T, H, D) of the encoder / vision embeddings
     ``src`` (B, T, d), every query head its own, in the dtype that ``src``
     and the weights promote to (float32 for the reference's float32
-    source over bfloat16 weights)."""
-    a = cfg.attn
-    hd = cfg.head_dim()
+    source over bfloat16 weights).  Under laid-out rules ``src`` is a
+    DTensor and ``build_cross_kv_laid`` runs."""
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return build_cross_kv_laid(params, src, cfg)
+    return _cross_kv_of(params, src, cfg.head_dim())
+
+
+def _cross_kv_of(params, src, hd: int):
+    """The cross keys and values of the heads ``wk`` / ``wv`` hold (every
+    head, or a rank's): (B, T, h, hd) each."""
     B, T, _ = src.shape
     dt = torch.promote_types(src.dtype, params["wk"].dtype)
     src = src.to(dt)
-    k = (src @ params["wk"].to(dt)).reshape(B, T, a.n_heads, hd)
-    v = (src @ params["wv"].to(dt)).reshape(B, T, a.n_heads, hd)
+    k = (src @ params["wk"].to(dt)).reshape(B, T, -1, hd)
+    v = (src @ params["wv"].to(dt)).reshape(B, T, -1, hd)
     if "k_norm" in params:
         k = rms_norm_vec(params["k_norm"], k)
     return {"k": k, "v": v}
@@ -716,25 +755,108 @@ def build_cross_kv(params, src, cfg: ModelConfig):
 def cross_attention(params, x, cfg: ModelConfig, cross_kv):
     """x (B, S, d) attends to every source position, unmasked.  A prompt
     (S > 1) runs K3 non-causal over the T source keys; decode (S = 1)
-    attends in plain PyTorch, as the self-attention's decode does."""
-    a = cfg.attn
+    attends in plain PyTorch, as the self-attention's decode does.  Under
+    laid-out rules ``cross_attention_laid`` runs."""
+    from repro_torch.launch.sharding import layout_active
+    if layout_active():
+        return cross_attention_laid(params, x, cfg, cross_kv)
+    y = _cross_core(x, params["wq"], cross_kv["k"], cross_kv["v"], cfg,
+                    params.get("q_norm"))
+    y = y @ params["wo"]
+    return apply_gate(y, params["gate"]) if "gate" in params else y
+
+
+def _cross_core(x, wq, k, v, cfg: ModelConfig, q_norm=None):
+    """The query heads of ``x`` (B, S, d) through ``wq`` (every head, or a
+    rank's) attending, unmasked, to their own keys and values (B, T, h,
+    D): K3 non-causal for a prompt (S > 1), the plain attention for decode
+    -> (B, S, h * D)."""
     hd = cfg.head_dim()
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, a.n_heads, hd)
-    if "q_norm" in params:
-        q = rms_norm_vec(params["q_norm"], q)
-    k, v = cross_kv["k"], cross_kv["v"]
+    q = _heads(x @ wq, hd, q_norm)
     scale = 1.0 / math.sqrt(hd)
     if S > 1:
         y = _k3(q, k, v, cfg, causal=False, scale=scale)
-        y = y.reshape(B, S, a.n_heads * hd)
     else:
-        T = k.shape[1]
         zeros = lambda n: torch.zeros((n,), dtype=torch.int32,
                                       device=x.device)
-        y = _mha(q, k, v, zeros(S), zeros(T), causal=False, window=0,
-                 softcap=0.0, scale=scale)
-    y = y @ params["wo"]
-    if "gate" in params:
-        y = torch.tanh(params["gate"].float()).to(y.dtype) * y
-    return y
+        y = _mha(q, k, v, zeros(S), zeros(k.shape[1]), causal=False,
+                 window=0, softcap=0.0, scale=scale)
+    return y.reshape(B, S, -1)
+
+
+def apply_gate(y, gate):
+    """``tanh(gate) * y`` for a scalar ``gate``; under laid-out rules (a
+    replicated ``gate``) on the local tensors of ``y``, a ``Partial`` sum
+    too (the scaling is linear)."""
+    from repro_torch.launch import layout as lay
+    fn = lambda y, g: torch.tanh(g.float()).to(y.dtype) * y
+    if not lay.is_dtensor(y):
+        return fn(y, gate)
+    return lay.local_kernel(fn, [y.placements, lay.place(())],
+                            y.placements)(y, gate)
+
+
+def build_cross_kv_laid(params, src, cfg: ModelConfig):
+    """``build_cross_kv`` on the layout: the source (B, T, d) with its
+    batch over the data axes and its positions as the logical map lays
+    'frames'; ``wk`` / ``wv`` column-parallel, so the keys and values (B,
+    T, H, D) come with their heads over 'model' (whole where 'model' does
+    not divide them)."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.sharding import hint
+    hd = cfg.head_dim()
+    src = hint(src, "batch", "frames", "embed")
+    bs = tuple(lay.spec_from(src.placements, 3)[:2])
+    heads = lay.place(bs + (lay.spec_from(params["wk"].placements, 2)[1],
+                            None))
+    norms = [params["k_norm"]] if "k_norm" in params else []
+
+    def proj(src, wk, wv, *kn):
+        ckv = _cross_kv_of(dict(wk=wk, wv=wv, **dict(zip(("k_norm",), kn))),
+                           src, hd)
+        return ckv["k"], ckv["v"]
+
+    ws = [params["wk"], params["wv"]]
+    k, v = lay.local_kernel(
+        proj, [src.placements] + [lay.gathered_weight(w) for w in ws]
+        + [lay.place((None,))] * len(norms), (heads, heads))(src, *ws, *norms)
+    return {"k": k, "v": v}
+
+
+def cross_attention_laid(params, x, cfg: ModelConfig, cross_kv):
+    """``cross_attention`` on the layout: the query heads over 'model'
+    (column-parallel ``wq``), each rank attending with its heads to their
+    own keys and values (Hkv = Hq): fresh ones lie with their heads over
+    'model' as ``build_cross_kv_laid`` makes them; a cache's lie whole
+    (``cache_pspecs``), and each rank slices its heads out.  A prompt runs
+    K3 non-causal on the local heads, decode the plain attention.  The
+    row-parallel ``wo`` leaves the output ``Partial`` over 'model', and
+    the tanh gate scales that partial sum (it is linear)."""
+    from repro_torch.launch import layout as lay
+    from repro_torch.launch.mesh import axis_index, axis_size
+    from repro_torch.launch.sharding import hint
+    H = cfg.attn.n_heads
+    tp = axis_size(lay.mesh(), "model")
+    if H % tp:
+        raise NotImplementedError(f"laid-out cross-attention needs the {H} "
+                                  f"heads to divide over 'model' = {tp}")
+    hl = H // tp
+    j = axis_index(lay.mesh(), "model")
+    h = hint(x, "batch", "seq", "embed")
+    bs = tuple(lay.spec_from(h.placements, 3)[:2])
+    norms = [params["q_norm"]] if "q_norm" in params else []
+    k, v = cross_kv["k"], cross_kv["v"]
+
+    def core(h, wq, k, v, *qn):
+        if k.shape[2] != hl:                # a cache's heads, every one
+            k, v = k[:, :, j * hl:(j + 1) * hl], v[:, :, j * hl:(j + 1) * hl]
+        return _cross_core(h, wq, k, v, cfg, qn[0] if qn else None)
+
+    y = lay.local_kernel(
+        core, [h.placements, lay.gathered_weight(params["wq"]),
+               k.placements, v.placements]
+        + [lay.place((None,))] * len(norms),
+        lay.place(bs + ("model",)))(h, params["wq"], k, v, *norms)
+    y = _out_proj_laid(y, params["wo"], None, None)
+    return apply_gate(y, params["gate"]) if "gate" in params else y

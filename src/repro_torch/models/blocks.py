@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.device import torch_dtype
 
-from .attention import (build_cross_kv, cross_attention, gqa_attention,
-                        init_attention, mla_attention)
+from .attention import (apply_gate, build_cross_kv, cross_attention,
+                        gqa_attention, init_attention, mla_attention)
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .mamba import apply_mamba, init_mamba, init_mamba_cache
@@ -59,6 +59,7 @@ def _cross_kv(params, cache, cross_src, cfg: ModelConfig):
     """The cross keys and values: from the cache when no source is given
     (decode, or a server that passes none), else built from the source and,
     with a cache, written into it in place."""
+    from repro_torch.launch.sharding import layout_active
     if cache is not None and cross_src is None:
         return {"k": cache["xk"], "v": cache["xv"]}
     ckv = build_cross_kv(params, cross_src, cfg)
@@ -68,9 +69,58 @@ def _cross_kv(params, cache, cross_src, cfg: ModelConfig):
                 f"a cross source of {ckv['k'].shape[1]} positions does not "
                 f"fit the cache's {cache['xk'].shape[1]} (init_caches' "
                 "n_cross)")
-        cache["xk"].copy_(ckv["k"])
-        cache["xv"].copy_(ckv["v"])
+        if layout_active():
+            _write_cross_laid(cache, ckv)
+        else:
+            cache["xk"].copy_(ckv["k"])
+            cache["xv"].copy_(ckv["v"])
     return ckv
+
+
+def _write_cross_laid(cache, ckv):
+    """The fresh cross keys and values (heads over 'model') into a laid-out
+    cache in place: the cache lies with its heads whole (``cache_pspecs``,
+    as the reference lays it), so each is gathered over 'model' first."""
+    from repro_torch.launch.layout import local_kernel
+
+    def put(c, t):
+        return c.copy_(t.to(c.dtype))
+
+    for key, t in (("xk", ckv["k"]), ("xv", ckv["v"])):
+        c = cache[key]
+        cache[key] = local_kernel(put, [c.placements, c.placements],
+                                  c.placements)(c, t)
+
+
+# the residual stream's logical dims (the reference's blocks.py hints)
+_RES = ("batch", "res_seq", "embed")
+
+
+def _norm(params, x, cfg: ModelConfig):
+    """``apply_norm``; under laid-out rules on each rank's tokens."""
+    from repro_torch.launch.sharding import layout_active
+
+    from .layers import norm_laid
+    return (norm_laid if layout_active() else apply_norm)(params, x, cfg)
+
+
+def _add(x, y):
+    """The residual add; under laid-out rules on the local tensors of two
+    DTensors laid out alike."""
+    from repro_torch.launch.layout import add
+    from repro_torch.launch.sharding import layout_active
+    return add(x, y) if layout_active() else x + y
+
+
+def _mlp(params, h, cfg: ModelConfig):
+    """The dense FFN; under laid-out rules with its hidden dim over 'model'
+    on the tokens as the reference hints them, ``Partial`` over 'model'."""
+    from repro_torch.launch.sharding import hint, layout_active
+
+    from .layers import mlp_laid
+    if layout_active():
+        return mlp_laid(params, hint(h, "batch", "seq", "embed"), cfg)
+    return apply_mlp(params, h, cfg)
 
 
 def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
@@ -78,14 +128,17 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                 moe_capacity: Optional[int] = None,
                 slots=None, slot_fetch=None, slot_live=None,
                 slot_phase: str = "decode"):
-    from repro_torch.launch.sharding import layout_active
-    if layout_active():
-        return _apply_block_laid(params, x, cfg, kinds, positions=positions,
-                                 cache=cache, causal=causal,
-                                 moe_capacity=moe_capacity)
+    """One block.  Under laid-out rules (DTensor inputs, no slot pool) the
+    residual stream ``x`` lies as the reference hints it ("batch",
+    "res_seq", "embed"), and each mixer's and MLP's output (``Partial``
+    over 'model') is reduced back to it there (``hint``, a no-op
+    otherwise).  Cross layers follow the reference's ``blocks.py:71-97``:
+    their keys and values come from the cache when no source is given,
+    else are built from ``cross_src`` and written into it."""
+    from repro_torch.launch.sharding import hint
     mixer_kind, mlp_kind = kinds
     moe_info = None
-    h = apply_norm(params["norm1"], x, cfg)
+    h = _norm(params["norm1"], x, cfg)
     if mixer_kind == "mamba":
         y, cache = apply_mamba(params["mixer"], h, cfg, cache)
     elif mixer_kind == "cross":
@@ -96,8 +149,8 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                                  positions=positions, cache=cache,
                                  causal=causal)
         ckv = _cross_kv(params["cross"], cache, cross_src, cfg)
-        x = x + y
-        h = apply_norm(params["norm_cross"], x, cfg)
+        x = _add(x, hint(y, *_RES))
+        h = _norm(params["norm_cross"], x, cfg)
         y = cross_attention(params["cross"], h, cfg, ckv)
     elif cfg.attn.mla is not None:
         y, cache = mla_attention(params["mixer"], h, cfg,
@@ -106,12 +159,13 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
         y, cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
                                  positions=positions, cache=cache,
                                  causal=causal)
+    y = hint(y, *_RES)
     if cfg.post_block_norm:
-        y = apply_norm(params["norm1_post"], y, cfg)
-    x = x + y
+        y = _norm(params["norm1_post"], y, cfg)
+    x = _add(x, y)
 
     if mlp_kind != "none":
-        h = apply_norm(params["norm2"], x, cfg)
+        h = _norm(params["norm2"], x, cfg)
         if mlp_kind == "moe":
             y, moe_info = apply_moe(params["mlp"], h, cfg,
                                     capacity=moe_capacity, slots=slots,
@@ -119,56 +173,13 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                                     slot_live=slot_live,
                                     slot_phase=slot_phase)
         else:
-            y = apply_mlp(params["mlp"], h, cfg)
+            y = _mlp(params["mlp"], h, cfg)
             if mixer_kind == "cross":   # gated FFN on VLM cross layers
-                y = torch.tanh(params["mlp_gate"].float()).to(y.dtype) * y
+                y = apply_gate(y, params["mlp_gate"])
+        y = hint(y, *_RES)
         if cfg.post_block_norm:
-            y = apply_norm(params["norm2_post"], y, cfg)
-        x = x + y
-    return x, cache, moe_info
-
-
-def _apply_block_laid(params, x, cfg: ModelConfig, kinds, *, positions,
-                      cache, causal: bool, moe_capacity):
-    """``apply_block`` on the layout: the residual stream ``x`` lies as the
-    reference hints it ("batch", "res_seq", "embed"); each mixer's and
-    MLP's output (``Partial`` over 'model') is reduced back to it there."""
-    from repro_torch.launch.layout import add
-    from repro_torch.launch.sharding import hint
-
-    from .layers import mlp_laid, norm_laid
-    mixer_kind, mlp_kind = kinds
-    if mixer_kind in ("cross", "self_cross"):
-        raise NotImplementedError(f"the laid-out model has no {mixer_kind} "
-                                  "layer")
-    res = ("batch", "res_seq", "embed")
-    moe_info = None
-    h = norm_laid(params["norm1"], x, cfg)
-    if mixer_kind == "mamba":
-        y, cache = apply_mamba(params["mixer"], h, cfg, cache)
-    elif cfg.attn.mla is not None:
-        y, cache = mla_attention(params["mixer"], h, cfg,
-                                 positions=positions, cache=cache)
-    else:
-        y, cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
-                                 positions=positions, cache=cache,
-                                 causal=causal)
-    y = hint(y, *res)
-    if cfg.post_block_norm:
-        y = norm_laid(params["norm1_post"], y, cfg)
-    x = add(x, y)
-    if mlp_kind != "none":
-        h = norm_laid(params["norm2"], x, cfg)
-        if mlp_kind == "moe":
-            y, moe_info = apply_moe(params["mlp"], h, cfg,
-                                    capacity=moe_capacity)
-        else:
-            y = mlp_laid(params["mlp"], hint(h, "batch", "seq", "embed"),
-                         cfg)
-        y = hint(y, *res)
-        if cfg.post_block_norm:
-            y = norm_laid(params["norm2_post"], y, cfg)
-        x = add(x, y)
+            y = _norm(params["norm2_post"], y, cfg)
+        x = _add(x, y)
     return x, cache, moe_info
 
 

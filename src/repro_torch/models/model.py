@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import pinned_empty, resolve_device, torch_dtype
-from repro_torch.launch.layout import local_kernel, unstack
+from repro_torch.launch.layout import local_kernel, tp_laid, unstack
 from repro_torch.tree import tree_map, tree_map_with_path
 
 from .blocks import apply_block, init_block, init_block_cache
@@ -193,16 +193,29 @@ def apply_encoder(params, src, cfg: ModelConfig):
     every layer attends non-causally (K3 with ``causal=False``).  A source
     wider than the weights (the reference's float32 frames) runs the
     encoder in its dtype, each weight promoted as JAX promotes it."""
+    from repro_torch.launch.sharding import hint, layout_active
+    laid = layout_active()
     T = src.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=src.device)
     up = lambda a: (a.to(torch.promote_types(a.dtype, src.dtype))
-                    if a.is_floating_point() else a)
+                    if a.is_floating_point() and a.dtype != src.dtype
+                    else a)
     x = src
     stack = params["stack"][0]
+    if laid:
+        # the residual stream as the decoder's lies; each layer's leaves
+        # indexed on the stack's local tensor (unstack)
+        from .layers import norm_laid
+        x = hint(src, "batch", "res_seq", "embed")
+        stack = tree_map(unstack, stack)
     for s in range(cfg.encoder.n_layers):
-        x, _, _ = apply_block(tree_map(lambda a: up(a[s]), stack), x, cfg,
-                              ("attn", "dense"), positions=positions,
-                              causal=False)
+        layer = tree_map(lambda a: up(a[s]), stack)
+        if laid:
+            layer = tp_laid(layer)
+        x, _, _ = apply_block(layer, x, cfg, ("attn", "dense"),
+                              positions=positions, causal=False)
+    if laid:
+        return norm_laid(tree_map(up, params["final_norm"]), x, cfg)
     return apply_norm(tree_map(up, params["final_norm"]), x, cfg)
 
 
@@ -239,16 +252,17 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    if laid and (cross_src is not None or expert_slots is not None
-                 or cfg.encoder is not None):
-        raise NotImplementedError("the laid-out model runs without a cross "
-                                  "source, an encoder or a slot pool")
+    if laid and expert_slots is not None:
+        raise NotImplementedError("the laid-out model runs without a slot "
+                                  "pool")
     if cross_src is not None:
-        cross_src = torch.as_tensor(cross_src, device=tokens.device)
+        if not laid:
+            cross_src = torch.as_tensor(cross_src, device=tokens.device)
         src_dt = (torch.float32 if cross_src.dtype == torch.float64
                   else cross_src.dtype)     # JAX computes without x64
-        cross_src = cross_src.to(torch.promote_types(
-            src_dt, torch_dtype(cfg.dtype)))
+        dt = torch.promote_types(src_dt, torch_dtype(cfg.dtype))
+        if cross_src.dtype != dt:
+            cross_src = cross_src.to(dt)
         if cfg.encoder is not None:
             cross_src = apply_encoder(params["encoder"], cross_src, cfg)
     if laid:

@@ -677,8 +677,18 @@ def _moe_laid(params, x, cfg: ModelConfig, *, capacity):
     if ep and ep_applicable(cfg, B, S):
         blk = lay.place((bspec[0], "model", None))
         xb = x.redistribute(x.device_mesh, blk)
-        local = {k: (v.to_local() if lay.is_dtensor(v)
-                     else {kk: vv.to_local() for kk, vv in v.items()})
+        # the shared experts whole over 'model' (each rank's own tokens
+        # meet every hidden unit; the reference's shard_map in_specs,
+        # moe_ep.py:279-286), still over 'data' under fsdp.  Every rank's
+        # block of tokens differs, so a leaf replicated on a mesh dim (the
+        # router; the shared experts over 'model'; the stacks over 'data'
+        # under tp) takes a Partial gradient there, summed when settled
+        # (the reference's shard_map transpose psums it)
+        local = {k: (lay.local_of(v, blk) if lay.is_dtensor(v)
+                     else {kk: lay.local_of(vv.redistribute(
+                         vv.device_mesh,
+                         lay.replicated_on(vv.placements, ("model",))), blk)
+                         for kk, vv in v.items()})
                  for k, v in params.items()}
         yb, info = apply_moe_ep(local, xb.to_local(), cfg, capacity=capacity,
                                 local=True)

@@ -345,9 +345,11 @@ def _ep_expert_ffn(xa, wg, wu, wd, cnt_rx, cfg: ModelConfig):
 
 def _local_weights(params, cfg: ModelConfig, mesh, fsdp: bool):
     """This rank's expert stacks (its 'model' slots; full stacks are
-    sliced, local ones taken as they are) and shared experts, with FSDP's
-    f dim gathered over 'data' (full widths sliced to this rank's share
-    first, so the gradient takes the gather's backward)."""
+    sliced, local ones taken as they are) and shared experts (whole over
+    'model'), with the dim FSDP lays over 'data' gathered: the stacks' f
+    dim, the shared experts' d_model dim (full widths sliced to this
+    rank's share first, so the gradient takes the gather's backward)."""
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch.mesh import axis_index, axis_size
     m = cfg.moe
     E = m.n_routed
@@ -379,9 +381,13 @@ def _local_weights(params, cfg: ModelConfig, mesh, fsdp: bool):
                              f"experts, want {E} or this rank's {E_loc}")
         out[k] = fsdp_gather(w, 1 if k == "down" else 2, de)
     if m.n_shared:
-        ds = m.d_shared or m.n_shared * de
-        out["shared"] = {k: fsdp_gather(v, 0 if k == "down" else 1, ds)
-                         for k, v in params["shared"].items()}
+        # each rank's own tokens meet the whole shared expert: the leaves
+        # come whole over 'model', and FSDP gathers the dim it lays over
+        # 'data' (the d_model dim of either matrix)
+        out["shared"] = {
+            k: fsdp_gather(v, shd.matrix_spec(k, "fsdp").index("data"),
+                           cfg.d_model)
+            for k, v in params["shared"].items()}
     return out
 
 

@@ -21,10 +21,11 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, make_smoke
+from repro_torch.configs import ARCHS, get_config, make_smoke
 from repro_torch.launch import layout as lay
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.collectives import CollectiveCount
+from repro_torch.tree import tree_map
 
 B, S, N_DEC = 4, 16, 4
 WMODES = ("tp", "fsdp")
@@ -46,9 +47,11 @@ def qwen3_ep():
 def wide(cfg):
     """A smoke config with 8 query and KV heads and 512-wide FFNs, so that
     'model' = 8 of the production mesh divides its heads and leaves K2 an
-    f slice of 64."""
-    kw = dict(d_ff=512, attn=dataclasses.replace(
-        cfg.attn, n_heads=8, n_kv_heads=8, head_dim=32))
+    f slice of 64 (Mamba-2's smoke heads, 16, already divide)."""
+    kw = dict(d_ff=512)
+    if cfg.attn is not None:
+        kw["attn"] = dataclasses.replace(cfg.attn, n_heads=8, n_kv_heads=8,
+                                         head_dim=32)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(cfg.moe, d_expert=512)
     return cfg.replace(**kw)
@@ -69,19 +72,19 @@ def _full(t):
     return (t.full_tensor() if lay.is_dtensor(t) else t).detach().numpy()
 
 
-def serve_state(cfg, caches, first, meta):
+def serve_state(cfg, caches, first, meta, b=B, s=S):
     from repro_torch.launch.shapes import meta_serve_state
     from repro_torch.serving.steps import (default_dali_config,
                                            init_serve_state, resolve_policy)
     dcfg = default_dali_config(cfg) if cfg.moe is not None else None
     if meta:
-        state, _ = meta_serve_state(cfg, B, S + N_DEC,
+        state, _ = meta_serve_state(cfg, b, s + N_DEC,
                                     resolve_policy(None, cfg, dcfg))
     else:
-        state = init_serve_state(cfg, B, S + N_DEC, dali_cfg=dcfg,
+        state = init_serve_state(cfg, b, s + N_DEC, dali_cfg=dcfg,
                                  device="cpu")
     state.update(caches=caches, tokens=first,
-                 pos=torch.full((), S, dtype=torch.int32,
+                 pos=torch.full((), s, dtype=torch.int32,
                                 device="meta" if meta else "cpu"))
     return state
 
@@ -92,40 +95,55 @@ def bf16(cfg):
     return cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
 
 
-def run_steps(cfg, params, toks, lbls, mesh, wmode):
+def run_steps(cfg, params, toks, lbls, mesh, wmode, src=None, train=True,
+              forward=True, keep_caches=False):
     """Laid out on ``mesh``: the forward (prefill_32k's map), the prefill
     and ``N_DEC`` greedy decode steps (decode_32k's), one AdamW step
-    (train_4k's).  ``params`` / ``toks`` / ``lbls`` are full tensors (or
-    ``meta``).  Returns the gathered results (None on meta) and each
-    step's collectives (kind, elements, group size, axes)."""
+    (train_4k's), whose settled gradients are returned too.  ``params`` /
+    ``toks`` / ``lbls`` are full tensors (or ``meta``); ``src`` a cross source (B, T, d) for the forward, the
+    prefill and the training step, whose caches then hold T cross
+    positions; ``train`` / ``forward`` False leave those steps out;
+    ``keep_caches`` adds the caches the prefill wrote, gathered.  Returns
+    the gathered results (None on meta) and each step's collectives (kind,
+    elements, group size, axes)."""
     from repro_torch.models.model import (apply_model, init_caches,
                                           meta_caches)
     from repro_torch.serving.steps import (default_dali_config,
                                            make_decode_step,
                                            make_prefill_step)
-    from repro_torch.training.optimizer import OptConfig, init_adamw
-    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                                init_adamw)
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
     meta = toks.is_meta
+    b, s = toks.shape
+    n_cross = None if src is None else src.shape[1]
     out, sig = {}, {}
     lm = lambda shape: shd.logical_map_for(cfg, shape, mesh)
+    laid_src = lambda: None if src is None else lay.distribute_batch(src,
+                                                                     mesh)
     with shd.rules(mesh, lm("prefill_32k"), wmode), torch.no_grad():
         p = lay.distribute_params(params, cfg, mesh, wmode)
         t = lay.distribute_batch(toks, mesh)
-        with CollectiveCount(mesh) as cc:
-            logits, _, _ = apply_model(p, t, cfg)
-        out["logits"], sig["forward"] = _full(logits), cc.signature("elements")
+        if forward:
+            with CollectiveCount(mesh) as cc:
+                logits, _, _ = apply_model(p, t, cfg, cross_src=laid_src())
+            out["logits"] = _full(logits)
+            sig["forward"] = cc.signature("elements")
     dcfg = default_dali_config(cfg) if cfg.moe is not None else None
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg, dcfg)
     with shd.rules(mesh, lm("decode_32k"), wmode), torch.no_grad():
         caches = lay.distribute_caches(
-            meta_caches(cfg, B, S + N_DEC, dtype=cfg.dtype) if meta else
-            init_caches(cfg, B, S + N_DEC, device="cpu", dtype=cfg.dtype),
+            meta_caches(cfg, b, s + N_DEC, dtype=cfg.dtype, n_cross=n_cross)
+            if meta else init_caches(cfg, b, s + N_DEC, device="cpu",
+                                     dtype=cfg.dtype, n_cross=n_cross),
             cfg, "decode_32k", mesh)
         with CollectiveCount(mesh) as cc:
-            first, caches = prefill(p, t, caches)
+            first, caches = prefill(p, t, caches, cross_src=laid_src())
         sig["prefill"] = cc.signature("elements")
-        state = serve_state(cfg, caches, first, meta)
+        if keep_caches and not meta:
+            out["caches"] = tree_map(lambda a: a.numpy(), lay.gather(caches))
+        state = serve_state(cfg, caches, first, meta, b, s)
         toks_out = [first]
         with CollectiveCount(mesh) as cc:
             for _ in range(N_DEC):
@@ -134,19 +152,28 @@ def run_steps(cfg, params, toks, lbls, mesh, wmode):
         out["tokens"] = [_full(t) for t in toks_out]
         out["decode_logits"] = _full(lg)
         sig["decode"] = cc.signature("elements")
-    step = make_train_step(cfg, OptConfig())
+    if not train:
+        return out, sig
+    loss_fn = make_loss_fn(cfg)
     with shd.rules(mesh, lm("train_4k"), wmode):
         p = lay.distribute_params(params, cfg, mesh, wmode)
         opt = lay.distribute_opt_state(init_adamw(params), cfg, mesh, wmode)
-        batch = lay.distribute_batch({"tokens": toks, "labels": lbls}, mesh)
+        batch = {"tokens": toks, "labels": lbls}
+        if src is not None:
+            batch["cross_src"] = src
+        batch = lay.distribute_batch(batch, mesh)
         with CollectiveCount(mesh) as cc:
-            p, opt, metrics = step(p, opt, batch)
+            # make_train_step's two halves, so that the settled gradients
+            # can be read
+            (_, metrics), grads = value_and_grad(loss_fn, p, batch)
+            p, opt, om = adamw_update(p, grads, opt, OptConfig())
         sig["train"] = cc.signature("elements")
-        out["loss"] = _full(metrics["loss"])
-        out["params"] = None if meta else lay.gather(p)
-        if out["params"] is not None:
-            from repro_torch.tree import tree_map
-            out["params"] = tree_map(lambda a: a.numpy(), out["params"])
+        for k in ("loss", "aux"):
+            out[k] = _full(metrics[k])
+        out["grad_norm"] = _full(om["grad_norm"])
+        for k, tree in (("params", p), ("grads", grads)):
+            out[k] = None if meta else tree_map(lambda a: a.numpy(),
+                                                lay.gather(tree))
     return out, sig
 
 
@@ -155,7 +182,6 @@ def layout_rank(rank, world, params_np, qwen_np):
     (2, 2) mesh; rank 0's results and every rank's collectives."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import apply_model, init_model
-    from repro_torch.tree import tree_map
     mesh = make_mesh(2, 2)
     cfg = mixtral()
     params = tree_map(torch.from_numpy, params_np)
@@ -209,7 +235,7 @@ def meta_run():
              "train_4k": "train"}
     with fake_world(256):
         mesh = make_production_mesh()
-        for arch in ("mixtral_8x7b", "llama3_405b", "qwen3_30b_a3b"):
+        for arch in ARCHS:
             c = bf16(wide(make_smoke(get_config(arch))))
             for shape, build in builders.items():
                 spec = ShapeSpec(shape, kinds[shape], 32, 64)

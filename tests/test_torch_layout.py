@@ -33,8 +33,9 @@ from repro_torch.models.model import (apply_model, init_caches, init_model,
                                       meta_model)
 from repro_torch.serving.steps import (default_dali_config, init_serve_state,
                                        make_decode_step, make_prefill_step)
-from repro_torch.training.optimizer import OptConfig, init_adamw
-from repro_torch.training.train_step import make_train_step
+from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                            init_adamw)
+from repro_torch.training.train_step import make_loss_fn, value_and_grad
 from repro_torch.tree import tree_leaves, tree_map
 
 HERE = os.path.dirname(__file__)
@@ -70,21 +71,31 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def meta_proc():
+    """The fake group's run (the module as a script), started before the
+    ranks so that it runs beside them."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
+    p = subprocess.Popen([sys.executable,
+                          os.path.join(HERE, "_torch_layout_ranks.py")],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=env)
+    yield p
+    p.kill()
+
+
+@pytest.fixture(scope="module")
+def ranks(meta_proc):
     return run_ranks(R.layout_rank, 4, timeout_s=600,
                      args=(_params_np(), _qwen_np()))
 
 
 @pytest.fixture(scope="module")
-def meta():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(HERE, "..", "src"), env.get("PYTHONPATH", "")])
-    r = subprocess.run([sys.executable, os.path.join(HERE,
-                                                     "_torch_layout_ranks.py")],
-                       capture_output=True, text=True, timeout=600, env=env)
-    assert r.returncode == 0, r.stderr[-3000:]
-    return json.loads(r.stdout)
+def meta(ranks, meta_proc):
+    out, err = meta_proc.communicate(timeout=600)
+    assert meta_proc.returncode == 0, err[-3000:]
+    return json.loads(out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,10 +125,24 @@ def _single(arch="mixtral_8x7b"):
             out["tokens"].append(state["tokens"])
         out["decode_logits"] = lg[..., :cfg.vocab]
     p = tree_map(lambda t: t.clone(), params)
-    p, _, m = make_train_step(cfg, OptConfig())(
-        p, init_adamw(p), {"tokens": toks, "labels": lbls})
-    out["params"], out["loss"] = p, float(m["loss"])
+    (_, m), g = value_and_grad(make_loss_fn(cfg), p,
+                               {"tokens": toks, "labels": lbls})
+    p, _, om = adamw_update(p, g, init_adamw(p), OptConfig())
+    out.update(params=p, grads=g, loss=float(m["loss"]),
+               grad_norm=float(om["grad_norm"]))
     return out
+
+
+def _grads_close(got, want, tol):
+    """Every gradient leaf within ``tol`` of ``want``'s, relative to its
+    own max |g| (tests/test_torch_archs_train.py)."""
+    got, want = bridge.flatten(got), bridge.flatten(want)
+    assert got.keys() == want.keys()
+    for k in want:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        assert a.shape == b.shape, k
+        err = float(np.abs(a - b).max(initial=0))
+        assert err <= tol * float(np.abs(b).max(initial=0)), (k, err)
 
 
 @pytest.mark.parametrize("wmode", R.WMODES)
@@ -147,16 +172,28 @@ def test_forward_and_serving_against_the_port_and_jax(ranks, wmode):
 
 @pytest.mark.parametrize("wmode", R.WMODES)
 def test_train_step_against_the_port_and_jax(ranks, wmode):
+    """One training step: every settled gradient leaf (each relative to
+    its own max |g|), the gradient norm, the loss and the parameters after
+    the AdamW step within 1e-5 of the single process, and the gradients
+    and the loss within 3e-5 of ``jax.value_and_grad`` of the JAX
+    package's loss."""
     got = ranks[0][wmode]["out"]
     ref = _single()
+    _grads_close(got["grads"], ref["grads"], 1e-5)
+    assert abs(float(got["grad_norm"]) / ref["grad_norm"] - 1) < 1e-5
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(ref["params"])):
         np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=1e-5)
     assert abs(float(got["loss"]) - ref["loss"]) < 1e-5
     jc, jp = _jax_params()
     toks, lbls = R.tokens(R.mixtral())
-    jl, _ = jstep.make_loss_fn(jc)(jp, {"tokens": jnp.asarray(toks),
-                                        "labels": jnp.asarray(lbls)})
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        jstep.make_loss_fn(jc), has_aux=True))(
+            jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(lbls)})
     assert abs(float(got["loss"]) - float(jl)) < 3e-5
+    jg = bridge.to_torch(jax.tree.map(np.asarray, jg), "cpu")
+    _grads_close(got["grads"],
+                 tree_map(lambda _, t: t.numpy(), meta_model(R.mixtral()),
+                          jg), 3e-5)
 
 
 @pytest.mark.parametrize("arch", R.OTHERS)
@@ -165,7 +202,8 @@ def test_mla_and_mamba_layers_on_the_layout(ranks, arch):
     sequence sharded, the absorbed decode combined by log-sum-exp) and
     Jamba's Mamba-2 (inner channels and heads over 'model', the gated
     norm's mean square summed over it), under tp: the forward, greedy
-    decode and a training step within 1e-5 of the single-process port."""
+    decode and a training step (every gradient leaf, relative to its own
+    max |g|) within 1e-5 of the single-process port."""
     got, ref = ranks[0][arch], _single(arch)
     vocab = ref["logits"].shape[-1]
     np.testing.assert_allclose(got["logits"], ref["logits"].numpy(),
@@ -175,6 +213,7 @@ def test_mla_and_mamba_layers_on_the_layout(ranks, arch):
     np.testing.assert_allclose(got["decode_logits"][..., :vocab],
                                ref["decode_logits"].numpy(), atol=1e-5,
                                rtol=1e-5)
+    _grads_close(got["grads"], ref["grads"], 1e-5)
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(ref["params"])):
         np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=1e-5)
 
@@ -210,12 +249,14 @@ def test_rank_collectives_equal_the_meta_count(ranks, meta, wmode):
 
 
 def test_production_mesh_dry_run_of_smoke_configs(meta):
-    """Smoke configs laid out on (data=32, model=8) run every step kind;
-    a one-layer dense TP prefill all-reduces B/32 x S x d once per
+    """The twelve architectures' smoke configs laid out on (data=32,
+    model=8) run every step kind (the cross source laid out over the
+    batch, Gemma-2's 32-token prompt past its 16-wide window); a
+    one-layer dense TP prefill all-reduces B/32 x S x d once per
     row-parallel product (the embedding, the attention's and the FFN's
     output projections), each at 2 (g - 1) / g of its bytes."""
     pod = meta["pod"]
-    assert len(pod) == 9
+    assert len(pod) == 3 * len(R.ARCHS)
     for name, rec in pod.items():
         assert rec["collectives"]["total"] > 0, name
     rec = pod["llama3_405b prefill_32k"]

@@ -23,7 +23,7 @@ from repro.models.model import init_model as jinit_model
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import collectives, mesh as tmesh
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.shapes import SHAPES
+from repro_torch.launch.shapes import SHAPES, n_cross_for
 from repro_torch.models.model import meta_caches, meta_model
 from repro_torch.tree import tree_map_with_path
 
@@ -175,15 +175,24 @@ def test_param_pspecs_every_leaf(arch):
 def test_cache_pspecs(shape):
     """Every cache leaf's spec equals the reference's, but ``pos``: the
     port lays (B, S_c) out as the keys' first two dims, where the
-    reference's spec names only its dim 0, with the sequence axis."""
+    reference's spec names only its dim 0, with the sequence axis.  The
+    VLM's and the encoder-decoder's caches are built with the dry run's
+    ``n_cross`` on both sides, so their cross keys and values (batch over
+    its axes, heads whole) are compared too."""
     spec = SHAPES[shape]
     for arch in ("mixtral_8x7b", "deepseek_v2_lite_16b", "jamba_1_5_large_398b",
-                 "llama_3_2_vision_11b", "gemma2_9b", "mamba2_780m"):
+                 "llama_3_2_vision_11b", "seamless_m4t_large_v2",
+                 "gemma2_9b", "mamba2_780m"):
         jc, tc = jget_config(arch), get_config(arch)
         B, S = min(spec.batch, 64), min(spec.seq, 4096)
+        n_cross = n_cross_for(tc, spec)
         jcache = jax.eval_shape(functools.partial(
-            jinit_caches, jc, B, S, dtype=jc.dtype))
-        tcache = meta_caches(tc, B, S, dtype=tc.dtype)
+            jinit_caches, jc, B, S, dtype=jc.dtype, n_cross=n_cross))
+        tcache = meta_caches(tc, B, S, dtype=tc.dtype, n_cross=n_cross)
+        cross = [k for k in _tflat(shd.cache_pspecs(
+            tc, tcache, shape, fake(MESHES[0])), tcache)
+            if k[-1] in ("xk", "xv")]
+        assert bool(cross) == (tc.family in ("vlm", "audio")), arch
         for dims in MESHES:
             m = fake(dims)
             want = _jflat(jshd.cache_pspecs(jc, jcache, shape, m))
