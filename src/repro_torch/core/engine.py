@@ -17,6 +17,7 @@ from repro_torch.core.policy import (DaliConfig, Observation,  # noqa: F401
                                      _init_acc, _random_resident,
                                      make_policy)
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 
 def init_dali_state(dcfg: DaliConfig, gen=None, device="cuda"):
@@ -102,23 +103,29 @@ class TelemetryAggregator:
     _prev: dict = field(default_factory=dict, repr=False)
     _since_flush: int = field(default=0, repr=False)
 
-    def observe(self, policy_state, n_active=None):
-        """Per decode step, sync-free.  No-op when scheduling is off."""
+    def observe(self, policy_state, n_active=None) -> int:
+        """Per decode step, sync-free but every ``flush_interval``-th.
+        No-op when scheduling is off.  Returns the host reads made
+        (``flush``)."""
         acc = policy_state.get("acc") if policy_state else None
         if acc is None:
-            return
+            return 0
         self.steps += 1
         if n_active is not None:
             self.active_tokens += int(n_active)
         self._pending = acc
         self._since_flush += 1
         if self._since_flush >= self.flush_interval:
-            self.flush()
+            return self.flush()
+        return 0
 
-    def flush(self):
-        """Drain the last observed device accumulator (one host sync)."""
+    @span("policy.telemetry_flush")
+    def flush(self) -> int:
+        """Drain the last observed device accumulator: one read back per
+        counter, the first of which waits on the card.  Returns the number
+        of reads (0 with nothing pending)."""
         if self._pending is None:
-            return
+            return 0
         acc = {k: v.cpu() for k, v in self._pending.items()}
         for attr, key, cast in (("moe_time_est", "moe_time", float),
                                 ("link_time_est", "link_time", float),
@@ -131,12 +138,14 @@ class TelemetryAggregator:
             self._prev[key] = cur
         self._pending = None
         self._since_flush = 0
+        return len(acc)
 
-    def end_epoch(self):
+    def end_epoch(self) -> int:
         """Flush and re-base: the next observed policy state starts its
-        accumulator from zero."""
-        self.flush()
+        accumulator from zero.  Returns ``flush``'s reads."""
+        n = self.flush()
         self._prev = {}
+        return n
 
     @property
     def lookups(self) -> int:

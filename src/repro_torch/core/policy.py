@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.assignment import greedy_assign_torch
 from repro_torch.core.cost_model import CostModel
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 NEG, POS = -1e30, 1e30
 
@@ -513,24 +514,29 @@ class ComposedPolicy:
         w = workloads.float()
 
         # --- prefetch: predictions for layers 1..L-1 ----------------------
-        pf_sub, pf_pred = self.prefetch.predict(
-            state["prefetch"], w, obs, dcfg, self.top_k, self.router_type)
-        prefetched = (_select_prefetch(pf_pred, dcfg.prefetch_size)
-                      if self.prefetch.enabled
-                      else torch.zeros(w.shape, dtype=torch.bool,
-                                       device=w.device))
+        with span("policy.prefetch"):
+            pf_sub, pf_pred = self.prefetch.predict(
+                state["prefetch"], w, obs, dcfg, self.top_k,
+                self.router_type)
+            prefetched = (_select_prefetch(pf_pred, dcfg.prefetch_size)
+                          if self.prefetch.enabled
+                          else torch.zeros(w.shape, dtype=torch.bool,
+                                           device=w.device))
 
         # --- assignment against the effective resident set ----------------
-        resident_eff = state["resident"] | prefetched
-        tc = _t_cpu(w, dcfg)                                       # (L, E)
-        tg = _t_gpu(w, resident_eff, dcfg)
-        on_cpu, on_gpu, T_cpu, T_gpu = self.assignment.assign(w, tc, tg)
+        with span("policy.assign"):
+            resident_eff = state["resident"] | prefetched
+            tc = _t_cpu(w, dcfg)                                   # (L, E)
+            tg = _t_gpu(w, resident_eff, dcfg)
+            on_cpu, on_gpu, T_cpu, T_gpu = self.assignment.assign(w, tc, tg)
 
         # --- cache replacement --------------------------------------------
-        tick = state["tick"] + 1
-        gpu_active = on_gpu & (workloads > 0)
-        resident_new, cache_sub, n_swaps = self.cache.update(
-            state["cache"], state["resident"], w, gpu_active, tick, dcfg)
+        with span("policy.cache"):
+            tick = state["tick"] + 1
+            gpu_active = on_gpu & (workloads > 0)
+            resident_new, cache_sub, n_swaps = self.cache.update(
+                state["cache"], state["resident"], w, gpu_active, tick,
+                dcfg)
 
         new_state = {"resident": resident_new, "cache": cache_sub,
                      "prefetch": pf_sub, "tick": tick}

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import torch_dtype
+from repro_torch.spans import span
 
 from .attention import (apply_gate, build_cross_kv, cross_attention,
                         gqa_attention, init_attention, mla_attention)
@@ -127,59 +128,63 @@ def apply_block(params, x, cfg: ModelConfig, kinds, *, positions,
                 cache=None, cross_src=None, causal: bool = True,
                 moe_capacity: Optional[int] = None,
                 slots=None, slot_fetch=None, slot_live=None,
-                slot_phase: str = "decode"):
+                slot_phase: str = "decode", layer: Optional[int] = None):
     """One block.  Under laid-out rules (DTensor inputs, no slot pool) the
     residual stream ``x`` lies as the reference hints it ("batch",
     "res_seq", "embed"), and each mixer's and MLP's output (``Partial``
     over 'model') is reduced back to it there (``hint``, a no-op
-    otherwise).  Cross layers follow the reference's ``blocks.py:71-97``:
+    otherwise).  ``layer``, the block's index in the model, is an attribute
+    of its spans.  Cross layers follow the reference's ``blocks.py:71-97``:
     their keys and values come from the cache when no source is given,
     else are built from ``cross_src`` and written into it."""
     from repro_torch.launch.sharding import hint
     mixer_kind, mlp_kind = kinds
     moe_info = None
-    h = _norm(params["norm1"], x, cfg)
-    if mixer_kind == "mamba":
-        y, cache = apply_mamba(params["mixer"], h, cfg, cache)
-    elif mixer_kind == "cross":
-        ckv = _cross_kv(params["mixer"], cache, cross_src, cfg)
-        y = cross_attention(params["mixer"], h, cfg, ckv)
-    elif mixer_kind == "self_cross":
-        y, cache = gqa_attention(params["mixer"], h, cfg, kind="attn",
-                                 positions=positions, cache=cache,
-                                 causal=causal)
-        ckv = _cross_kv(params["cross"], cache, cross_src, cfg)
-        x = _add(x, hint(y, *_RES))
-        h = _norm(params["norm_cross"], x, cfg)
-        y = cross_attention(params["cross"], h, cfg, ckv)
-    elif cfg.attn.mla is not None:
-        y, cache = mla_attention(params["mixer"], h, cfg,
-                                 positions=positions, cache=cache)
-    else:
-        y, cache = gqa_attention(params["mixer"], h, cfg, kind=mixer_kind,
-                                 positions=positions, cache=cache,
-                                 causal=causal)
-    y = hint(y, *_RES)
-    if cfg.post_block_norm:
-        y = _norm(params["norm1_post"], y, cfg)
-    x = _add(x, y)
-
-    if mlp_kind != "none":
-        h = _norm(params["norm2"], x, cfg)
-        if mlp_kind == "moe":
-            y, moe_info = apply_moe(params["mlp"], h, cfg,
-                                    capacity=moe_capacity, slots=slots,
-                                    slot_fetch=slot_fetch,
-                                    slot_live=slot_live,
-                                    slot_phase=slot_phase)
+    with span("model.attn", layer=layer):
+        h = _norm(params["norm1"], x, cfg)
+        if mixer_kind == "mamba":
+            y, cache = apply_mamba(params["mixer"], h, cfg, cache)
+        elif mixer_kind == "cross":
+            ckv = _cross_kv(params["mixer"], cache, cross_src, cfg)
+            y = cross_attention(params["mixer"], h, cfg, ckv)
+        elif mixer_kind == "self_cross":
+            y, cache = gqa_attention(params["mixer"], h, cfg, kind="attn",
+                                     positions=positions, cache=cache,
+                                     causal=causal)
+            ckv = _cross_kv(params["cross"], cache, cross_src, cfg)
+            x = _add(x, hint(y, *_RES))
+            h = _norm(params["norm_cross"], x, cfg)
+            y = cross_attention(params["cross"], h, cfg, ckv)
+        elif cfg.attn.mla is not None:
+            y, cache = mla_attention(params["mixer"], h, cfg,
+                                     positions=positions, cache=cache)
         else:
-            y = _mlp(params["mlp"], h, cfg)
-            if mixer_kind == "cross":   # gated FFN on VLM cross layers
-                y = apply_gate(y, params["mlp_gate"])
+            y, cache = gqa_attention(params["mixer"], h, cfg,
+                                     kind=mixer_kind, positions=positions,
+                                     cache=cache, causal=causal)
         y = hint(y, *_RES)
         if cfg.post_block_norm:
-            y = _norm(params["norm2_post"], y, cfg)
+            y = _norm(params["norm1_post"], y, cfg)
         x = _add(x, y)
+
+    if mlp_kind != "none":
+        with span("model.moe" if mlp_kind == "moe" else "model.mlp",
+                  layer=layer):
+            h = _norm(params["norm2"], x, cfg)
+            if mlp_kind == "moe":
+                y, moe_info = apply_moe(params["mlp"], h, cfg,
+                                        capacity=moe_capacity, slots=slots,
+                                        slot_fetch=slot_fetch,
+                                        slot_live=slot_live,
+                                        slot_phase=slot_phase)
+            else:
+                y = _mlp(params["mlp"], h, cfg)
+                if mixer_kind == "cross":   # gated FFN on VLM cross layers
+                    y = apply_gate(y, params["mlp_gate"])
+            y = hint(y, *_RES)
+            if cfg.post_block_norm:
+                y = _norm(params["norm2_post"], y, cfg)
+            x = _add(x, y)
     return x, cache, moe_info
 
 

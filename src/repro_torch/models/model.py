@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import pinned_empty, resolve_device, torch_dtype
 from repro_torch.launch.layout import local_kernel, tp_laid, unstack
+from repro_torch.spans import span
 from repro_torch.tree import tree_map, tree_map_with_path
 
 from .blocks import apply_block, init_block, init_block_cache
@@ -265,26 +266,31 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
             cross_src = cross_src.to(dt)
         if cfg.encoder is not None:
             cross_src = apply_encoder(params["encoder"], cross_src, cfg)
-    if laid:
-        # the laid-out model (launch/sharding.py::rules): DTensor inputs,
-        # the residual stream as the reference hints it (model.py:135)
-        from .layers import embed_laid
-        x = hint(embed_laid(params["embed"], tokens, cfg),
-                 "batch", "res_seq", "embed")
-    else:
-        x = embed(params["embed"], tokens, cfg)
+    with span("model.embed"):
+        if laid:
+            # the laid-out model (launch/sharding.py::rules): DTensor
+            # inputs, the residual stream as the reference hints it
+            # (model.py:135)
+            from .layers import embed_laid
+            x = hint(embed_laid(params["embed"], tokens, cfg),
+                     "batch", "res_seq", "embed")
+        else:
+            x = embed(params["embed"], tokens, cfg)
 
     slot_kw = dict(cross_src=cross_src, slot_fetch=slot_fetch,
                    slot_live=slot_live, slot_phase=slot_phase)
+    phase = "decode" if S == 1 else "prefill"
     infos = []
     for i, kinds in enumerate(prefix_pat):
-        c = caches["prefix"][i] if caches is not None else None
-        sl = expert_slots["prefix"][i] if expert_slots is not None else None
-        x, _, info = apply_block(params["prefix"][i], x, cfg, kinds,
-                                 positions=positions, cache=c,
-                                 moe_capacity=moe_capacity, slots=sl,
-                                 **slot_kw)
-        infos.append(_trim_info(info, trace))
+        with span("model.layer", layer=i, phase=phase):
+            c = caches["prefix"][i] if caches is not None else None
+            sl = (expert_slots["prefix"][i] if expert_slots is not None
+                  else None)
+            x, _, info = apply_block(params["prefix"][i], x, cfg, kinds,
+                                     positions=positions, cache=c,
+                                     moe_capacity=moe_capacity, slots=sl,
+                                     layer=i, **slot_kw)
+            infos.append(_trim_info(info, trace))
 
     # laid out, each stacked leaf is indexed on its local tensor (unstack)
     scan_p = tree_map(unstack, params["scan"]) if laid else params["scan"]
@@ -295,18 +301,21 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
         """The period's blocks of super-block ``s`` -> (x, their infos)."""
         out = []
         for p, kinds in enumerate(period_pat):
-            p_slice = tree_map(lambda a: a[s], scan_p[p])
-            c = (tree_map(lambda a: a[s], scan_c[p])
-                 if caches is not None else None)
-            sl = (expert_slots["scan"][p][s]
-                  if expert_slots is not None
-                  and expert_slots["scan"][p] is not None else None)
-            x, _, info = apply_block(p_slice, x, cfg, kinds,
-                                     positions=positions, cache=c,
-                                     moe_capacity=moe_capacity, slots=sl,
-                                     **slot_kw)
-            x = hint(x, "batch", "res_seq", "embed")       # model.py:182
-            out.append(_trim_info(info, trace))
+            i = len(prefix_pat) + s * len(period_pat) + p
+            with span("model.layer", layer=i, phase=phase):
+                with span("model.slice", layer=i):
+                    p_slice = tree_map(lambda a: a[s], scan_p[p])
+                    c = (tree_map(lambda a: a[s], scan_c[p])
+                         if caches is not None else None)
+                    sl = (expert_slots["scan"][p][s]
+                          if expert_slots is not None
+                          and expert_slots["scan"][p] is not None else None)
+                x, _, info = apply_block(p_slice, x, cfg, kinds,
+                                         positions=positions, cache=c,
+                                         moe_capacity=moe_capacity, slots=sl,
+                                         layer=i, **slot_kw)
+                x = hint(x, "batch", "res_seq", "embed")   # model.py:182
+                out.append(_trim_info(info, trace))
         return x, out
 
     # cfg.remat: each super-block of the stack (not the prefix layers, as in
@@ -328,6 +337,16 @@ def apply_model(params, tokens, cfg: ModelConfig, *, positions=None,
             x, out = super_block(x, s)
         for p, info in enumerate(out):
             per_pos[p].append(info)
+    with span("model.head", phase=phase):
+        return _head(params, x, cfg, caches, infos, per_pos, laid,
+                     logit_index, last_logit_only)
+
+
+def _head(params, x, cfg: ModelConfig, caches, infos, per_pos, laid: bool,
+          logit_index: Optional[int], last_logit_only: bool):
+    """``apply_model``'s tail: the stacked infos, the final norm and the
+    logits of the positions asked for."""
+    from repro_torch.launch.sharding import hint
     infos.append(tuple(
         None if rows[0] is None
         else {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.kernels.expert_ffn.ops import expert_ffn
 from repro_torch.kernels.gating.ops import gating
+from repro_torch.spans import span
 
 from .config import ModelConfig, MoEConfig, scan_pattern
 from .layers import apply_mlp, dense_init, init_mlp
@@ -275,7 +276,7 @@ def _bucket_rows(ye, se, rank, inv, keep, e0: int = 0):
 
 
 def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
-                    live=None):
+                    live=None, phase: str = "decode"):
     """Physical-offload decode path: one K2 row group per (token, k) slot,
     weights from the layer's device slot pool (``slots``: one entry of
     ``ExpertStore.build_view``).  Pooled experts read their slot rows;
@@ -294,41 +295,56 @@ def slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg: ModelConfig,
     ``live`` (T,) bool marks live batch slots: a dead row never counts as a
     miss (a retired slot's garbage token must not fetch); its output comes
     from whatever slot row the clipped index lands on and is discarded.
-    The host learns the misses from one small device-to-host read."""
+    The host learns the misses from one small device-to-host read, and a
+    layer that misses uploads its rows' staging indices (or, "host", their
+    outputs) from pageable memory: both wait on the card (the store's
+    ``host_syncs``)."""
     T, d = xf.shape
     K = idx.shape[1]
     lid = slots["lid"]
-    slot_fetch.wait_layer(lid)
-    flat_e = idx.reshape(-1).to(torch.int32)
-    slot = slots["slot_of"][flat_e.long()]                 # (T*K,) int32
-    hit = slot >= 0
-    if live is not None:
-        hit = hit | ~live.repeat_interleave(K)
-    got = slot_fetch.read_misses(lid, torch.stack([flat_e,
-                                                   hit.to(torch.int32)]))
+    with span("moe.dispatch", layer=lid, phase=phase):
+        slot_fetch.wait_layer(lid)
+        flat_e = idx.reshape(-1).to(torch.int32)
+        slot = slots["slot_of"][flat_e.long()]             # (T*K,) int32
+        hit = slot >= 0
+        if live is not None:
+            hit = hit | ~live.repeat_interleave(K)
+        rows = torch.stack([flat_e, hit.to(torch.int32)])
+    got = slot_fetch.read_misses(lid, rows)
     e_np, hit_np = got[0], got[1].astype(bool)
-    xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()
-    ys = expert_ffn(xs, slots["gate"], slots["up"], slots["down"],
-                    counts=hit.to(torch.int32),
-                    expert_ids=slot.clamp(min=0).contiguous(),
-                    act=cfg.act)[:, 0]
+    with span("moe.k2_pool", layer=lid, phase=phase):
+        xs = xf.repeat_interleave(K, dim=0)[:, None, :].contiguous()
+        ys = expert_ffn(xs, slots["gate"], slots["up"], slots["down"],
+                        counts=hit.to(torch.int32),
+                        expert_ids=slot.clamp(min=0).contiguous(),
+                        act=cfg.act)[:, 0]
+    ym = miss = None
     if not hit_np.all():
         miss = ~hit
         if slot_fetch.fallback == "host":
             ym = slot_fetch.host_ffn(lid, xf, e_np, hit_np)
+            with span("moe.miss_upload", layer=lid, phase=phase):
+                ym = ym.to(xf.device)
+            slot_fetch.count_sync()
         else:
             stage = (slot_fetch.little_weights
                      if slot_fetch.fallback == "little"
                      else slot_fetch.fetch_weights)
             wg, wu, wd, srow = stage(lid, e_np, hit_np)
-            ym = expert_ffn(xs, wg, wu, wd, counts=miss.to(torch.int32),
-                            expert_ids=torch.from_numpy(srow).to(xf.device),
-                            act=cfg.act)[:, 0]
-        ys = torch.where(miss[:, None], ym.to(xf.device), ys)
-    return _combine_topk(ys, gates)
+            with span("moe.miss_upload", layer=lid, phase=phase):
+                srow = torch.from_numpy(srow).to(xf.device)
+            slot_fetch.count_sync()
+            with span("moe.k2_miss", layer=lid, phase=phase):
+                ym = expert_ffn(xs, wg, wu, wd, counts=miss.to(torch.int32),
+                                expert_ids=srow, act=cfg.act)[:, 0]
+    with span("moe.combine", layer=lid, phase=phase):
+        if ym is not None:
+            ys = torch.where(miss[:, None], ym, ys)
+        return _combine_topk(ys, gates)
 
 
-def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
+def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig,
+                      phase: str = "prefill"):
     """Physical-offload capacity sweep: (E, C, d) buckets -> (E, C, d).
 
     One K2 grouped launch runs the pooled experts' buckets with
@@ -348,10 +364,11 @@ def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
     slot_of = slots["slot_of"]
     need = ((slot_fetch.read_misses(lid, counts, prefill=True) > 0)
             & (slots["slot_of_np"] < 0))
-    ye = expert_ffn(xe, slots["gate"], slots["up"], slots["down"],
-                    counts=torch.where(slot_of >= 0, counts, 0),
-                    expert_ids=slot_of.clamp(min=0).contiguous(),
-                    act=cfg.act)
+    with span("moe.k2_pool", layer=lid, phase=phase):
+        ye = expert_ffn(xe, slots["gate"], slots["up"], slots["down"],
+                        counts=torch.where(slot_of >= 0, counts, 0),
+                        expert_ids=slot_of.clamp(min=0).contiguous(),
+                        act=cfg.act)
     if slot_fetch.fallback == "host":
         return ye, need
     ids = np.nonzero(need)[0]
@@ -365,11 +382,15 @@ def slot_expert_sweep(slots, slot_fetch, xe, counts, cfg: ModelConfig):
         rows[wave] = np.arange(len(wave), dtype=np.int32)
         sel = np.zeros(E, bool)
         sel[wave] = True
-        sel = torch.from_numpy(sel).to(xe.device)
-        yw = expert_ffn(xe, wg, wu, wd, counts=torch.where(sel, counts, 0),
-                        expert_ids=torch.from_numpy(rows).to(xe.device),
-                        act=cfg.act)
-        ye = torch.where(sel[:, None, None], yw, ye)
+        with span("moe.miss_upload", layer=lid, phase=phase):
+            sel = torch.from_numpy(sel).to(xe.device)
+            rows = torch.from_numpy(rows).to(xe.device)
+        slot_fetch.count_sync(2)
+        with span("moe.k2_miss", layer=lid, phase=phase):
+            yw = expert_ffn(xe, wg, wu, wd,
+                            counts=torch.where(sel, counts, 0),
+                            expert_ids=rows, act=cfg.act)
+            ye = torch.where(sel[:, None, None], yw, ye)
     return ye, np.zeros(E, bool)
 
 
@@ -543,8 +564,13 @@ def apply_moe(params, x, cfg: ModelConfig, *,
             slot_phase=slot_phase)
     E, K = m.n_routed, m.top_k
     xf = x.reshape(T, d)
+    # the spans' attributes: the store's layer id on the slot path
+    at = {"phase": "decode" if S == 1 else "prefill"}
+    if slots is not None:
+        at["layer"] = slots["lid"]
 
-    gates, idx, probs, logits = route(params, xf, m)
+    with span("moe.route", **at):
+        gates, idx, probs, logits = route(params, xf, m)
     vrep = None if valid is None else valid.repeat_interleave(K)
     sparse = (force_path == "sparse" if force_path is not None
               else ((slots is not None and slot_phase == "decode")
@@ -556,25 +582,25 @@ def apply_moe(params, x, cfg: ModelConfig, *,
             live = slot_live if slot_live is not None else \
                 (valid if slot_phase == "prefill" else None)
             y = slot_expert_ffn(slots, slot_fetch, xf, idx, gates, cfg,
-                                live=live)
+                                live=live, phase=at["phase"])
         else:
-            y = grouped_expert_ffn(params, xf, idx, gates, cfg)
-        counts = _workload_counts(idx.reshape(-1), E, vrep)
-        if valid is not None:
-            y = torch.where(valid[:, None], y, 0)
-        dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+            with span("moe.k2", **at):
+                y = grouped_expert_ffn(params, xf, idx, gates, cfg)
     else:
         C = capacity if capacity is not None else expert_capacity(m, T)
-        xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C,
-                                                   valid_rep=vrep)
+        with span("moe.dispatch", **at):
+            xe, counts, se, rank, inv = local_dispatch(xf, idx, E, K, C,
+                                                       valid_rep=vrep)
         host_need = None
         if slots is not None:
             ye, host_need = slot_expert_sweep(slots, slot_fetch, xe, counts,
-                                              cfg)
+                                              cfg, phase=at["phase"])
         else:
-            ye = expert_ffn_dense(params, xe, cfg, counts=counts)  # (E,C,d)
-        keep_s = (rank < C) & (se < E)
-        contrib = _bucket_rows(ye, se, rank, inv, keep_s)
+            with span("moe.k2", **at):
+                ye = expert_ffn_dense(params, xe, cfg, counts=counts)
+        with span("moe.combine", **at):
+            keep_s = (rank < C) & (se < E)
+            contrib = _bucket_rows(ye, se, rank, inv, keep_s)
         if host_need is not None and host_need.any():
             # the CPU tier at (token, k)-row granularity: host rows replace
             # their (zero) device contributions under the same drops;
@@ -584,28 +610,38 @@ def apply_moe(params, x, cfg: ModelConfig, *,
             e_np = slot_fetch.read_misses(slots["lid"], key, prefill=True)
             host_hit = ~np.append(host_need, False)[e_np]
             ys_host = slot_fetch.prefill_host(slots["lid"], xf, e_np,
-                                              host_hit).to(x.device)
-            host_miss = ~torch.from_numpy(host_hit).to(x.device)
+                                              host_hit)
+            with span("moe.miss_upload", **at):
+                ys_host = ys_host.to(x.device)
+                host_miss = ~torch.from_numpy(host_hit).to(x.device)
+            slot_fetch.count_sync(2)
             contrib = torch.where((host_miss & keep_s[inv])[:, None],
                                   ys_host.to(contrib.dtype), contrib)
-        y = _combine_topk(contrib, gates)
-        dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)
-    y = y.to(x.dtype)
-    if m.n_shared:
-        y = y + apply_mlp(params["shared"], xf, cfg)
+    with span("moe.combine", **at):
+        if sparse:
+            counts = _workload_counts(idx.reshape(-1), E, vrep)
+            if valid is not None:
+                y = torch.where(valid[:, None], y, 0)
+            dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+        else:
+            y = _combine_topk(contrib, gates)
+            dropped = ((se < E) & (rank >= C)).sum().to(torch.int32)
+        y = y.to(x.dtype)
+        if m.n_shared:
+            y = y + apply_mlp(params["shared"], xf, cfg)
 
-    lse2 = torch.logsumexp(logits, dim=-1) ** 2
-    if valid is None:
-        frac_tokens = counts.float() / (T * K)
-        mean_prob = probs.mean(0)
-        z_loss = lse2.mean()
-    else:
-        n_valid = valid.sum().clamp(min=1).float()
-        frac_tokens = counts.float() / (n_valid * K)
-        vf = valid.float()
-        mean_prob = (probs * vf[:, None]).sum(0) / n_valid
-        z_loss = (lse2 * vf).sum() / n_valid
-    aux_loss = E * (frac_tokens * mean_prob).sum()
+        lse2 = torch.logsumexp(logits, dim=-1) ** 2
+        if valid is None:
+            frac_tokens = counts.float() / (T * K)
+            mean_prob = probs.mean(0)
+            z_loss = lse2.mean()
+        else:
+            n_valid = valid.sum().clamp(min=1).float()
+            frac_tokens = counts.float() / (n_valid * K)
+            vf = valid.float()
+            mean_prob = (probs * vf[:, None]).sum(0) / n_valid
+            z_loss = (lse2 * vf).sum() / n_valid
+        aux_loss = E * (frac_tokens * mean_prob).sum()
     info = {
         "workload": counts,                        # (E,) tokens per expert
         "topk_idx": idx,                           # (T, K)

@@ -90,6 +90,7 @@ from repro_torch.serving.faults import (DEGRADED, HEALTHY, LITTLE,
                                         DegradationLadder, FaultInjector,
                                         HostReadError, LinkWatchdog,
                                         TransientFault)
+from repro_torch.spans import span
 
 FALLBACKS = ("fetch", "host", "little")
 STORE_MODES = ("blocking", "overlap", "pipelined")
@@ -304,6 +305,8 @@ class ExpertStore:
             "restaged_rows": 0,        # flagged rows copied again
             "probes": 0,               # health-probe copies
             "little_steps": 0,         # steps served with streaming suspended
+            "host_syncs": 0,           # host waits on the card (reads,
+                                       # pageable uploads, stream syncs)
         }
         self._drained = dict(self._tel)
         self._cur = np.full((self.n_layers, n_slots), -1, np.int32)
@@ -387,6 +390,12 @@ class ExpertStore:
 
     def _bump(self, name: str, v=1):
         self._tel[name] += v
+
+    def count_sync(self, n: int = 1):
+        """Count ``n`` host waits on the card made at a site of the slot
+        path outside the store (``models/moe.py`` uploads the miss rows'
+        staging indices from pageable memory)."""
+        self._bump("host_syncs", n)
 
     def stats(self) -> dict:
         """Monotonic counter totals."""
@@ -475,6 +484,7 @@ class ExpertStore:
             buf[k][0].copy_(self.host[k][0, 0], non_blocking=True)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        self._bump("host_syncs")
         self._fault_sleep(self.expert_bytes)
         self._bump("probes")
         self._observe(self.expert_bytes, self._clock() - t0)
@@ -556,6 +566,7 @@ class ExpertStore:
             got = torch.cat([row_checksums(*(dst[k][i][None]
                                              for k in EXPERT_KEYS))
                              for i in range(len(experts))]).cpu().numpy()
+        self._bump("host_syncs")
         bad = np.nonzero(got != truth)[0]
         if len(bad):
             self._bump("corrupt_caught", len(bad))
@@ -651,6 +662,7 @@ class ExpertStore:
         self._slot_of = _slot_of(self._dev_cur, self.E)
         off["cur"].copy_(torch.from_numpy(self._dev_cur))
         self._slot_of_dev.copy_(torch.from_numpy(self._slot_of))
+        self._bump("host_syncs", 2)          # two pageable uploads
 
     def init_device_state(self, resident):
         """Seed the pool from an initial (L, E) bool resident set (the
@@ -716,6 +728,7 @@ class ExpertStore:
         """Block the host until every pool copy started has landed."""
         if self._copy_stream is not None:
             self._copy_stream.synchronize()
+        self._bump("host_syncs")
         self._layer_events = {}
 
     def wait_layer(self, lid: int):
@@ -727,6 +740,7 @@ class ExpertStore:
 
     # -- the slot view the model consumes ------------------------------------
 
+    @span("store.build_view")
     def build_view(self, off):
         """params-shaped per-layer slot view for ``apply_model``:
         ``{"prefix": (...), "scan": (...)}``.  Each MoE layer's entry holds
@@ -762,6 +776,7 @@ class ExpertStore:
         step where every row hits: the serving-path audit reports that
         (``E_CALLBACK_UNGUARDED``)."""
         self._bump("prefill_miss_reads" if prefill else "miss_reads")
+        self._bump("host_syncs")
         return t.cpu().numpy()
 
     def _miss_staging(self, n: int):
@@ -855,6 +870,7 @@ class ExpertStore:
 
     def _host_ffn(self, lid: int, xf, flat_e, hit):
         xf = xf.cpu()
+        self._bump("host_syncs")
         e = np.asarray(flat_e)
         rows = np.nonzero(~np.asarray(hit))[0]
         self._guard_transient("host-ffn")
@@ -890,6 +906,7 @@ class ExpertStore:
         self._bump("prefill_host_rows", int((~np.asarray(hit)).sum()))
         return ys
 
+    @span("store.prefill_barrier")
     def prefill_barrier(self, off):
         """Make the pool coherent before a prefill reads it: overlap commits
         a staged plan now (admission runs at the step boundary); blocking
@@ -1022,6 +1039,7 @@ class ExpertStore:
     # pre_step before the decode dispatch, post_dispatch right after it,
     # next_target after the step's token sync
 
+    @span("store.pre_step")
     def pre_step(self, off, mode: str, target):
         """Before the decode dispatch: "blocking" -> plan, copy and wait;
         "overlap" -> commit the rows staged behind the previous step;
@@ -1038,15 +1056,18 @@ class ExpertStore:
             return off
         return self.step_update(off, target, wait=mode == "blocking")
 
+    @span("store.post_dispatch")
     def post_dispatch(self, mode: str, target):
         """Right after the decode dispatch: in "overlap" mode, stage the
         next plan behind the step in flight."""
         if mode == "overlap" and target is not None:
             self.stage(target)
 
-    @staticmethod
-    def next_target(state, tel):
-        """The next step's pool target — this step's cache ∪ prefetch."""
+    @span("policy.next_target")
+    def next_target(self, state, tel):
+        """The next step's pool target — this step's cache ∪ prefetch (one
+        read back to the host)."""
+        self._bump("host_syncs")
         return (state["dali"]["resident"] | tel["prefetched"]).cpu().numpy()
 
 

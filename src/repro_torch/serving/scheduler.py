@@ -29,6 +29,12 @@ follows the store's degradation ladder), the decode dispatch,
 counters fold into ``ServeMetrics.offload_tel`` once per step, and its
 link watchdog's report into ``ServeMetrics.links`` at the end of a run
 (continuous) or of a wave.
+
+Every host wait on the card is counted where it happens, the scheduler's
+in ``ServeMetrics.host_syncs`` and the store's and the slot path's in the
+store's ``host_syncs``; with the span recorder on (``repro_torch.spans``)
+admissions, decode steps and their layers are spanned on the device
+trace's clock.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.models.model import init_caches
 from repro_torch.serving.spec import (ResolvedServe, ServeSpec, build_store,
                                      warn_legacy)
 from repro_torch.serving.steps import make_admit_step, retire_slot
+from repro_torch.spans import span
 
 
 def make_store(offload: str, params, cfg, policy, fallback: str = "fetch",
@@ -99,6 +106,11 @@ class ServeMetrics:
     steps: int = 0                      # decode steps
     occupancy_sum: int = 0              # live slots summed over steps
     requests: int = 0                   # finished requests
+    # host waits on the card at the scheduler's sites: each step's token
+    # read, each admission's prompt upload, slot writes and first token, each
+    # retirement's slot write, the policy telemetry's reads (the store counts
+    # its own in stats()["host_syncs"])
+    host_syncs: int = 0
     # physical-offload counters folded from ExpertStore.drain()
     offload_tel: dict = field(default_factory=dict)
     # per-link watchdog counter snapshots keyed by link name ("host>0"):
@@ -258,23 +270,29 @@ class ContinuousBatchServer(_Server):
         L = len(req.prompt)
         Sb = L if self._exact_prefill else \
             _bucket_len(L, self.min_bucket, self.max_len)
-        toks = np.zeros((1, Sb), np.int32)
-        toks[0, :L] = req.prompt                     # RIGHT-pad (see steps)
-        fresh = self._fresh_caches
-        for c in list(fresh["prefix"]) + list(fresh["scan"]):
-            if "pos" in c:              # cross caches have no positions
-                c["pos"].fill_(-1)
-        off = None
-        if self.store is not None:
-            # overlap may hold a staged plan: commit it so the admission
-            # sweep reads a coherent pool
-            off = state["offload"] = self.store.prefill_barrier(
-                state["offload"])
-        first_tok, fresh = self._prefill(
-            self.params, torch.as_tensor(toks, device=self.device), fresh, L,
-            off)
-        state = self._admit(state, fresh, first_tok, slot, L)
-        tok = int(first_tok[0, 0])                   # waits for the device
+        with span("scheduler.admit", rid=req.rid, prompt_len=L, bucket=Sb):
+            toks = np.zeros((1, Sb), np.int32)
+            toks[0, :L] = req.prompt                 # RIGHT-pad (see steps)
+            fresh = self._fresh_caches
+            for c in list(fresh["prefix"]) + list(fresh["scan"]):
+                if "pos" in c:          # cross caches have no positions
+                    c["pos"].fill_(-1)
+            off = None
+            if self.store is not None:
+                # overlap may hold a staged plan: commit it so the admission
+                # sweep reads a coherent pool
+                off = state["offload"] = self.store.prefill_barrier(
+                    state["offload"])
+            with span("scheduler.prompt_upload"):
+                toks = torch.as_tensor(toks, device=self.device)
+            first_tok, fresh = self._prefill(self.params, toks, fresh, L, off)
+            with span("scheduler.admit_copy"):
+                state = self._admit(state, fresh, first_tok, slot, L)
+            with span("scheduler.first_token"):
+                tok = int(first_tok[0, 0])           # waits for the device
+            # the prompt's upload, the slot's position and live flag
+            # written from the host, the first token
+            self.metrics.host_syncs += 4
         t1 = time.perf_counter()
         self.metrics.prefill_s += t1 - t0
         self.metrics.prefill_tokens += L
@@ -310,6 +328,7 @@ class ContinuousBatchServer(_Server):
                     req.done_at = req.first_token_at
                     finished.append(req)
                     state = retire_slot(state, slot)
+                    self.metrics.host_syncs += 1     # the live flag's write
                 else:
                     slot_req[slot] = req
 
@@ -322,36 +341,43 @@ class ContinuousBatchServer(_Server):
                 continue
 
             # -- one decode step over the whole slot table -----------------
-            t0 = time.perf_counter()
-            if self.store is not None:
-                state["offload"] = self.store.pre_step(
-                    state["offload"], self.offload, pool_target)
-                self._decode.react()     # follow the degradation ladder
-            state, _, tel = self._decode(self.params, state, self.res_vecs)
-            if self.store is not None:
-                self.store.post_dispatch(self.offload, pool_target)
-            toks = state["tokens"][:, 0].tolist()    # the step's token sync
-            t1 = time.perf_counter()
-            if self.store is not None:
-                pool_target = self.store.next_target(state, tel)
-
-            emitted = len(busy)
-            for i in busy:
-                r = slot_req[i]
-                r.output.append(int(toks[i]))
-                if self._should_retire(r):
-                    r.done_at = t1
-                    finished.append(r)
-                    slot_req[i] = None
-                    state = retire_slot(state, i)
-            self.metrics.decode_tokens += emitted
-            self.metrics.decode_s += t1 - t0
-            self.metrics.steps += 1
-            self.metrics.occupancy_sum += emitted
-            if self.store is not None:
-                self.metrics.fold_offload(self.store.drain())
-            self.metrics.dali.observe(state.get("dali"), n_active=emitted)
-        self.metrics.dali.end_epoch()
+            with span("scheduler.decode_step", step=self.metrics.steps,
+                      live=len(busy)):
+                t0 = time.perf_counter()
+                if self.store is not None:
+                    state["offload"] = self.store.pre_step(
+                        state["offload"], self.offload, pool_target)
+                    self._decode.react()     # follow the degradation ladder
+                state, _, tel = self._decode(self.params, state,
+                                             self.res_vecs)
+                if self.store is not None:
+                    self.store.post_dispatch(self.offload, pool_target)
+                with span("scheduler.token_sync"):
+                    toks = state["tokens"][:, 0].tolist()
+                self.metrics.host_syncs += 1
+                t1 = time.perf_counter()
+                if self.store is not None:
+                    pool_target = self.store.next_target(state, tel)
+                with span("scheduler.retire"):
+                    emitted = len(busy)
+                    for i in busy:
+                        r = slot_req[i]
+                        r.output.append(int(toks[i]))
+                        if self._should_retire(r):
+                            r.done_at = t1
+                            finished.append(r)
+                            slot_req[i] = None
+                            state = retire_slot(state, i)
+                            self.metrics.host_syncs += 1   # its live flag
+                    self.metrics.decode_tokens += emitted
+                    self.metrics.decode_s += t1 - t0
+                    self.metrics.steps += 1
+                    self.metrics.occupancy_sum += emitted
+                    if self.store is not None:
+                        self.metrics.fold_offload(self.store.drain())
+                    self.metrics.host_syncs += self.metrics.dali.observe(
+                        state.get("dali"), n_active=emitted)
+        self.metrics.host_syncs += self.metrics.dali.end_epoch()
         if self.store is not None:
             self.metrics.fold_offload(self.store.drain())
             self.metrics.fold_links(self.store.health().get("links"))
@@ -406,20 +432,25 @@ class BatchServer(_Server):
         # fresh policy state draws its initial resident set again)
         state = self._resolved.init_state(batch=B)
         t0 = time.perf_counter()
-        off = None
-        if self.store is not None:
-            off = state["offload"] = self.store.prefill_barrier(
-                state["offload"])
-        tok, caches = self._prefill(
-            self.params, torch.as_tensor(prompts, device=self.device),
-            state["caches"], off)
-        toks0 = tok[:, 0].tolist()                   # waits for the device
-        t_pf = time.perf_counter()
-        self.metrics.prefill_s += t_pf - t0
-        self.metrics.prefill_tokens += B * S
-        state = dict(state, tokens=tok, caches=caches,
-                     pos=torch.tensor(S, dtype=torch.int32,
-                                      device=self.device))
+        with span("scheduler.admit", rid=wave[0].rid, prompt_len=S_raw,
+                  bucket=S, rows=len(wave)):
+            off = None
+            if self.store is not None:
+                off = state["offload"] = self.store.prefill_barrier(
+                    state["offload"])
+            with span("scheduler.prompt_upload"):
+                prompts = torch.as_tensor(prompts, device=self.device)
+                pos = torch.tensor(S, dtype=torch.int32, device=self.device)
+            tok, caches = self._prefill(self.params, prompts,
+                                        state["caches"], off)
+            with span("scheduler.first_token"):
+                toks0 = tok[:, 0].tolist()           # waits for the device
+            t_pf = time.perf_counter()
+            self.metrics.prefill_s += t_pf - t0
+            self.metrics.prefill_tokens += B * S
+            # the prompts' and the position's uploads, the first tokens
+            self.metrics.host_syncs += 3
+        state = dict(state, tokens=tok, caches=caches, pos=pos)
 
         live = np.arange(B) < len(wave)
         for i, r in enumerate(wave):
@@ -435,33 +466,40 @@ class BatchServer(_Server):
                 break
             # every row live at the top of the step emits one token
             emitted = int(live.sum())
-            if self.store is not None:
-                state["offload"] = self.store.pre_step(
-                    state["offload"], self.offload, pool_target)
-                self._decode.react()     # follow the degradation ladder
-            state, _, tel = self._decode(self.params, state, self.res_vecs)
-            if self.store is not None:
-                self.store.post_dispatch(self.offload, pool_target)
-            toks = state["tokens"][:, 0].tolist()    # the step's token sync
-            t_step = time.perf_counter()
-            if self.store is not None:
-                pool_target = self.store.next_target(state, tel)
-            for i, r in enumerate(wave):
-                if live[i]:
-                    r.output.append(int(toks[i]))
-                    if self._done(r, toks[i]):
-                        live[i] = False
-                        r.done_at = t_step
-            self.metrics.decode_tokens += emitted
-            self.metrics.steps += 1
-            self.metrics.occupancy_sum += emitted
-            if self.store is not None:
-                self.metrics.fold_offload(self.store.drain())
-            self.metrics.dali.observe(state.get("dali"), n_active=emitted)
+            with span("scheduler.decode_step", step=self.metrics.steps,
+                      live=emitted):
+                if self.store is not None:
+                    state["offload"] = self.store.pre_step(
+                        state["offload"], self.offload, pool_target)
+                    self._decode.react()     # follow the degradation ladder
+                state, _, tel = self._decode(self.params, state,
+                                             self.res_vecs)
+                if self.store is not None:
+                    self.store.post_dispatch(self.offload, pool_target)
+                with span("scheduler.token_sync"):
+                    toks = state["tokens"][:, 0].tolist()
+                self.metrics.host_syncs += 1
+                t_step = time.perf_counter()
+                if self.store is not None:
+                    pool_target = self.store.next_target(state, tel)
+                with span("scheduler.retire"):
+                    for i, r in enumerate(wave):
+                        if live[i]:
+                            r.output.append(int(toks[i]))
+                            if self._done(r, toks[i]):
+                                live[i] = False
+                                r.done_at = t_step
+                    self.metrics.decode_tokens += emitted
+                    self.metrics.steps += 1
+                    self.metrics.occupancy_sum += emitted
+                    if self.store is not None:
+                        self.metrics.fold_offload(self.store.drain())
+                    self.metrics.host_syncs += self.metrics.dali.observe(
+                        state.get("dali"), n_active=emitted)
         self.metrics.decode_s += time.perf_counter() - t0
         # each wave re-inits its policy state: close the epoch so the next
         # wave's accumulator drains from zero again
-        self.metrics.dali.end_epoch()
+        self.metrics.host_syncs += self.metrics.dali.end_epoch()
         if self.store is not None:
             self.metrics.fold_offload(self.store.drain())
             self.metrics.fold_links(self.store.health().get("links"))

@@ -44,6 +44,7 @@ from repro_torch.core.policy import DaliConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, layer_pattern
 from repro_torch.models.model import apply_model, collect_policy_obs, init_caches
+from repro_torch.spans import span
 
 
 def resolve_policy(policy, cfg: ModelConfig,
@@ -131,12 +132,13 @@ def make_prefill_step(cfg: ModelConfig, moe_capacity: Optional[int] = None,
     def prefill(params, tokens, caches, off=None, cross_src=None):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        logits, caches, _ = apply_model(
-            params, tokens, cfg, positions=positions, caches=caches,
-            cross_src=cross_src, moe_capacity=moe_capacity,
-            last_logit_only=True,
-            **_slot_kw(offload, slot_fetch, off, slot_phase="prefill"))
-        return logits[:, -1:].argmax(-1).to(torch.int32), caches
+        kw = _slot_kw(offload, slot_fetch, off, slot_phase="prefill")
+        with span("model.prefill"):
+            logits, caches, _ = apply_model(
+                params, tokens, cfg, positions=positions, caches=caches,
+                cross_src=cross_src, moe_capacity=moe_capacity,
+                last_logit_only=True, **kw)
+            return logits[:, -1:].argmax(-1).to(torch.int32), caches
 
     return prefill
 
@@ -160,11 +162,12 @@ def make_admit_prefill(cfg: ModelConfig,
     def prefill(params, tokens, caches, length: int, off=None):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        logits, caches, _ = apply_model(
-            params, tokens, cfg, positions=positions, caches=caches,
-            moe_capacity=moe_capacity, logit_index=length - 1,
-            **_slot_kw(offload, slot_fetch, off, slot_phase="prefill"))
-        next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        kw = _slot_kw(offload, slot_fetch, off, slot_phase="prefill")
+        with span("model.prefill"):
+            logits, caches, _ = apply_model(
+                params, tokens, cfg, positions=positions, caches=caches,
+                moe_capacity=moe_capacity, logit_index=length - 1, **kw)
+            next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, caches
 
     return prefill
@@ -188,8 +191,9 @@ def make_admit_step(cfg: ModelConfig):
                                             small, -1)
                     big_c[key].select(axis, slot).copy_(small.select(axis, 0))
         state["tokens"][slot] = first_tok[0].to(torch.int32)
-        state["pos"][slot] = length
-        state["active"][slot] = True
+        with span("scheduler.slot_write"):     # host scalars: each waits
+            state["pos"][slot] = length
+            state["active"][slot] = True
         return state
 
     return admit
@@ -197,7 +201,8 @@ def make_admit_step(cfg: ModelConfig):
 
 def retire_slot(state, slot: int):
     """Mark a slot free; its cache rows are overwritten on next admit."""
-    state["active"][slot] = False
+    with span("scheduler.slot_write"):         # a host scalar: it waits
+        state["active"][slot] = False
     return state
 
 
@@ -255,27 +260,33 @@ def make_decode_step(cfg: ModelConfig, dali_cfg: Optional[DaliConfig] = None,
             positions = state["pos"].reshape(1, 1).expand(
                 state["tokens"].shape[0], 1)
             active = None
-        logits, caches, infos = apply_model(
-            params, state["tokens"], cfg, positions=positions,
-            caches=state["caches"], moe_capacity=moe_capacity,
-            trace=use_policy,
-            **_slot_kw(offload, slot_fetch, state.get("offload"),
-                       slot_live=active))
-        if sample:
-            nxt = sample_tokens(logits[:, -1], temperature, state["rng"])
-        else:
-            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
-        # retired/empty slots hold position (their cache row is dead
-        # weight until the next admission overwrites it)
-        new_pos = (state["pos"] + 1 if active is None
-                   else state["pos"] + active.to(torch.int32))
+        kw = _slot_kw(offload, slot_fetch, state.get("offload"),
+                      slot_live=active)
+        with span("model.decode"):
+            logits, caches, infos = apply_model(
+                params, state["tokens"], cfg, positions=positions,
+                caches=state["caches"], moe_capacity=moe_capacity,
+                trace=use_policy, **kw)
+        with span("model.sample"):
+            if sample:
+                nxt = sample_tokens(logits[:, -1], temperature,
+                                    state["rng"])
+            else:
+                nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            # retired/empty slots hold position (their cache row is dead
+            # weight until the next admission overwrites it)
+            new_pos = (state["pos"] + 1 if active is None
+                       else state["pos"] + active.to(torch.int32))
         new_state = dict(state, tokens=nxt, pos=new_pos, caches=caches)
         telemetry = {}
         if use_policy:
-            workloads, obs = collect_policy_obs(
-                params, infos, cfg, token_mask=active, res_vecs=res_vecs)
-            new_pstate, decisions = policy.step(state["dali"], workloads,
-                                                obs)
+            with span("policy.observe"):
+                workloads, obs = collect_policy_obs(
+                    params, infos, cfg, token_mask=active,
+                    res_vecs=res_vecs)
+            with span("policy.step"):
+                new_pstate, decisions = policy.step(state["dali"],
+                                                    workloads, obs)
             telemetry = decisions.tel
             new_state["dali"] = new_pstate
         return new_state, logits, telemetry
@@ -389,6 +400,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
         require_offload_policy(policy, cfg)
         state["offload"] = offload.init_device_state(
             state["dali"]["resident"].cpu().numpy())
+        offload.count_sync()                # the resident set read back
     return state
 
 
